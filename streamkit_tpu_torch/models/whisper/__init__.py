@@ -1,0 +1,15 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Whisper in PyTorch: config, model, weight conversion, greedy decode."""
+
+from .config import WHISPER_CONFIGS, WHISPER_LANGUAGES, WhisperConfig, language_index
+from .decode import (
+    detect_language_ring,
+    detect_language_window,
+    greedy_decode,
+    pad_or_trim,
+    transcribe_ring,
+    transcribe_window,
+)
+from .load import config_from_hf, load_pretrained, params_from_hf_state_dict, params_from_numpy
+from .model import decode_logits, decode_step, encode, init_kv_cache, init_params
+from .tokenizer import WhisperDetokenizer

@@ -1,0 +1,156 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Flash attention for the Whisper encoder: a hand-written Hopper kernel.
+
+Port of ``streamkit_tpu/ops/attention.py``. The kernel
+(``csrc/flash_attention.cu``) replaces both TPU kernels there
+(``_flash_kernel`` and the library ``_lib_flash``); its header notes the
+design and the bound on an H100. It is compiled with ``nvcc`` for
+``sm_90a`` into a shared library on first CUDA use and loaded with
+``ctypes``; importing this module needs neither ``nvcc`` nor a card.
+
+:func:`flash_attention` launches the kernel for CUDA tensors and raises on
+what the kernel does not take. Only CPU tensors go to the plain version,
+:func:`attention_reference`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+__all__ = ["flash_attention", "attention_reference", "build_kernel"]
+
+_LOG2E = math.log2(math.e)
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "flash_attention.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def attention_reference(q, k, v, scale: float) -> torch.Tensor:
+    """Plain attention (the kernel's CPU path and its oracle). q/k/v:
+    ``[..., T, d]``; scores and softmax in f32, output in q's dtype."""
+    scores = torch.matmul((q * scale).float(), (k.transpose(-1, -2) * scale).float())
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v).to(q.dtype)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the flash-attention kernel cannot be built")
+    return path
+
+
+def build_kernel() -> str:
+    """Compile ``csrc/flash_attention.cu`` (once per source revision) and
+    return the library path. ``build_kernel.seconds`` holds the compile time
+    of this process's build (0.0 when the library was already there)."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = os.path.join(BUILD_DIR, f"libsk_flash_{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_kernel.seconds = time.monotonic() - t0
+    return out
+
+
+build_kernel.seconds = 0.0
+
+
+def _library():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_kernel())
+            fn = lib.sk_flash_attention
+            fn.argtypes = (
+                [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+            lib.sk_error_string.argtypes = [ctypes.c_int]
+            lib.sk_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def _check(q, k, v) -> None:
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: float32 or bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError("flash_attention: q [B,H,Tq,d], k and v [B,H,Tk,d]")
+    b, h, tq, d = q.shape
+    if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if d not in (64, 128) or tq == 0 or k.shape[2] == 0 or b * h > 65535:
+        raise ValueError(f"flash_attention: unsupported shape {tuple(q.shape)}")
+    # 16-byte vector loads of K/V rows and 4-byte loads of q/o pairs
+    vec = 16 // q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(-1) != 1 or x.data_ptr() % 16 or any(s % vec for s in x.stride()[:3]):
+            raise ValueError(
+                f"flash_attention: {name} needs a unit head_dim stride, a 16-byte "
+                f"aligned base and strides in multiples of {vec}, got {x.stride()}"
+            )
+
+
+def flash_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Non-causal attention over ``[batch, heads, T, d]`` with ``scale``
+    applied to both q and k (Whisper's ``d**-0.25``).
+
+    CUDA tensors launch the kernel, reading q/k/v through their strides (the
+    head-split views of ``[B, T, H*d]`` projections need no copy); the result
+    is a ``[B, H, Tq, d]`` view of a ``[B, Tq, H, d]`` buffer, so merging the
+    heads afterwards is free. CPU tensors take :func:`attention_reference`.
+    ``flash_attention.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale)
+    _check(q, k, v)
+    lib = _library()
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = lib.sk_flash_attention(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, tq, tk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        scale * scale * _LOG2E, stream,
+    )
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: {lib.sk_error_string(err).decode()}")
+    with _lock:
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

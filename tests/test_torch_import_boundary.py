@@ -1,0 +1,79 @@
+# SPDX-License-Identifier: Apache-2.0
+"""The port's import boundary: it loads neither JAX nor the JAX package, and
+its entry points refuse to fall back to the CPU when no card is present.
+
+Runs in a fresh interpreter: this test process has JAX loaded already
+(tests/conftest.py)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    before = set(sys.modules)
+    import streamkit_tpu_torch
+    import streamkit_tpu_torch.device
+    import streamkit_tpu_torch.engine
+    import streamkit_tpu_torch.engine.audio_ring
+    import streamkit_tpu_torch.engine.batcher
+    import streamkit_tpu_torch.models
+    import streamkit_tpu_torch.models.silero_vad
+    import streamkit_tpu_torch.models.whisper
+    import streamkit_tpu_torch.models.whisper.config
+    import streamkit_tpu_torch.models.whisper.decode
+    import streamkit_tpu_torch.models.whisper.load
+    import streamkit_tpu_torch.models.whisper.model
+    import streamkit_tpu_torch.models.whisper.tokenizer
+    import streamkit_tpu_torch.ops
+    import streamkit_tpu_torch.ops.attention
+    import streamkit_tpu_torch.ops.dsp
+    import streamkit_tpu_torch.ops.mel
+    import streamkit_tpu_torch.ops.vad
+    new = set(sys.modules) - before
+    bad = sorted(
+        m for m in new
+        if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+        or m == "streamkit_tpu" or m.startswith("streamkit_tpu.")
+        or m == "transformers"
+    )
+    assert not bad, bad
+    assert "jax" not in sys.modules
+
+    import torch
+    if not torch.cuda.is_available():
+        from streamkit_tpu_torch.engine import DeviceBatcher, SessionAudioRing
+        from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, init_params
+        from streamkit_tpu_torch.ops.vad import vad_init_state
+
+        for name, call in [
+            ("init_params", lambda: init_params(WHISPER_CONFIGS["tiny"])),
+            ("SessionAudioRing", lambda: SessionAudioRing(max_slots=2, ring_samples=1024)),
+            ("DeviceBatcher", lambda: DeviceBatcher()),
+            ("vad_init_state", lambda: vad_init_state()),
+        ]:
+            try:
+                call()
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e), (name, e)
+            else:
+                raise AssertionError(f"{name} ran without a card and without device=")
+        print("RAISED")
+    print("OK")
+    """
+)
+
+
+def test_port_imports_no_jax_and_needs_explicit_cpu():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
