@@ -3,23 +3,46 @@
 
     python3 chip_smoke.py
 
-1. Builds every hand-written kernel of the slice from ``streamkit_tpu_torch/
-   csrc`` (nvcc, sm_90a) and holds each against its plain PyTorch version on
-   the card, in bf16 and f32, at every shape the main path gives it (f32
-   within 1e-4 of the plain version run in f32; bf16 within twice the plain
-   version's own bf16 error), then times kernel, plain version and the
-   library call that computes the same function (a yardstick only; the port
-   never calls it).
-2. Context check: a small f32 Whisper config whose encoder takes the flash
-   kernel decodes the same tokens on ``cuda`` as the port on ``cpu``.
-3. Main path at full width: Whisper large-v3 (bf16, random weights from a
-   seed) behind a ``SessionAudioRing`` and a ``DeviceBatcher`` with the
-   ``vad_ring`` / ``whisper_detect`` / ``whisper_ring`` kinds registered as
-   the whisper node registers them. Four concurrent sessions stream 10–19 s
-   of synthetic audio in 512-sample VAD frames, then detect their language
-   and decode their segment from the ring; one session's audio also goes
-   through ``transcribe_window``. Kernel launch counts are zeroed just
-   before and read just after, and must equal 32 per encode.
+0. Builds every native source of the port at once, one compiler each:
+   ``csrc/flash_attention.cu``, ``csrc/cache_write.cu`` and
+   ``csrc/stream_attention.cu`` with nvcc for sm_90a, ``csrc/ingest.cpp``
+   with g++.
+1. Holds each hand-written kernel against its plain PyTorch version on the
+   card at the shapes the main paths give it, then times kernel, plain
+   version and (where one exists) the single PyTorch call that computes the
+   same function, a yardstick the port never calls:
+   K1 flash attention (f32 within 1e-4 of the plain version run in f32;
+   bf16 within twice the plain version's own bf16 error);
+   K2 windowed cache write at the int8 encoder caches, their f32 scales and
+   the bf16 decoder folds (bit-exact, with a wrapping row and a lim = 0 row);
+   K3 int8-history attention at [S, 20, 16, 64, 512] (the K1 limits, and a
+   pos = 0 row that must not see the history).
+2. Context checks: a small f32 Whisper whose encoder takes K1 decodes the
+   same tokens on ``cuda`` as on ``cpu``; a small f32 streaming table (int8
+   caches, identity packing, so K2 and K3 launch) runs fused block steps on
+   ``cuda`` and ``cpu`` to equal tokens and caches within tolerance.
+3. Segment-final path at full width: Whisper large-v3 (bf16, random weights
+   from a seed) behind a ``SessionAudioRing`` and a ``DeviceBatcher`` with
+   the ``vad_ring`` / ``whisper_detect`` / ``whisper_ring`` kinds registered
+   as the whisper node registers them: four sessions stream 10–19 s of
+   synthetic audio, detect their language and decode their segment from the
+   ring; one session's audio also goes through ``transcribe_window``.
+4. Live-partials path at full width: an ``SttServingEngine`` (large-v3
+   bf16) in stream mode serves 8 sessions of 8 s synthetic speech and 1 s of
+   silence pushed faster than real time, then a 2-session engine in exact
+   mode. Every session must see speech_start, partials and finals with
+   monotone ``seq``.
+
+5. Profiles a few fused steps at the live-partials path's shape (large-v3,
+   8 slots) with ``torch.profiler``: host wall per call against the
+   device's kernel time, by kernel.
+
+Kernel launch counts are set to 0 just before each path (3, 4) and read just
+after; each must equal what the code implies (K1: 32 per encode of 256 or
+more positions; K2: 10 per fused step call; K3: 32 per fused step call).
+Kernel times are device times by the profiler (CUDA-event times of a run of
+calls beside them, which include the gaps where the device waits for the
+host).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -50,6 +73,38 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def counters():
+    """The launch-counting kernel wrappers, by kernel name."""
+    from streamkit_tpu_torch.ops import attention, cache_write, stream_attention
+
+    return {"flash_attention": attention.flash_attention,
+            "windowed_write": cache_write.windowed_write_groups,
+            "history_attention": stream_attention.history_attention}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def build_phase() -> None:
+    """Start one compiler per native source, all at once; raise on failure."""
+    from streamkit_tpu_torch.engine import ingest
+    from streamkit_tpu_torch.ops import _build, attention, cache_write, stream_attention
+
+    sources = [attention.SOURCE, cache_write.SOURCE, stream_attention.SOURCE, ingest.SOURCE]
+    t0 = time.monotonic()
+    _build.build_all(sources)
+    for src in sources:
+        log(f"# built {os.path.relpath(src.library())} ({src.compiler}) in "
+            f"{_build.build_seconds.get(src.file, 0.0):.1f} s")
+    log(f"# build phase wall {time.monotonic() - t0:.1f} s")
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one ``fn()`` call, by CUDA events."""
     for _ in range(warmup):
@@ -65,6 +120,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels(fn, iters: int):
+    """The GPU kernels (and copies) that ``iters`` calls of ``fn`` run, as
+    profiler events (CUPTI sees every launch, ctypes ones included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Device time of one ``fn()`` call (the summed duration of the kernels
+    it runs, by the profiler) beside the CUDA-event time of a run of calls,
+    which also counts the gaps where the device waits for the host."""
+    event = time_ms(fn, iters, warmup)
+    ks = device_kernels(fn, iters)
+    if not ks:
+        log("# the profiler saw no device time: CUDA events only")
+        return {"ms": event, "event_ms": event}
+    return {"ms": sum(e.time_range.elapsed_us() for e in ks) / iters / 1e3, "event_ms": event,
+            "kernels_per_call": len(ks) / iters}
+
+
 def head_split(x: torch.Tensor, h: int) -> torch.Tensor:
     """``[B, T, H*d]`` → the ``[B, H, T, d]`` view the encoder hands the kernel."""
     b, t, hd = x.shape
@@ -74,15 +156,11 @@ def head_split(x: torch.Tensor, h: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # 1. kernels against their plain versions
 # ---------------------------------------------------------------------------
-def kernel_phase():
+def k1_phase():
     import torch.nn.functional as F
 
     from streamkit_tpu_torch.ops import attention as attn
 
-    t0 = time.monotonic()
-    lib = attn.build_kernel()
-    log(f"# built {os.path.relpath(lib)} in {attn.build_kernel.seconds:.1f} s "
-        f"(wall {time.monotonic() - t0:.1f} s)")
     g = torch.Generator(device="cuda").manual_seed(0)
     entry = None
     # the ring decode's 30 s windows (B=1, 4), the 8 s language-detection
@@ -123,10 +201,12 @@ def kernel_phase():
                 flops = 4 * b * h * t * t * d
                 nbytes = 4 * b * h * t * d * q.element_size()
                 t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
-                ms = time_ms(lambda: attn.flash_attention(q, k, v, scale))
-                plain_ms = time_ms(lambda: attn.attention_reference(q, k, v, scale), iters=5)
-                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5))
+                kt = kernel_ms(lambda: attn.flash_attention(q, k, v, scale))
+                pt = kernel_ms(lambda: attn.attention_reference(q, k, v, scale), iters=5)
+                lt = kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5))
+                ms, plain_ms, lib_ms = kt["ms"], pt["ms"], lt["ms"]
                 line.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
+                            event_ms=kt["event_ms"], plain_event_ms=pt["event_ms"], library_event_ms=lt["event_ms"],
                             bound_by="operations" if t_ops >= t_bytes else "bytes",
                             tflops=flops / ms / 1e9)
                 if b == 4 and t == 1500:  # the batched ring decode
@@ -141,7 +221,124 @@ def kernel_phase():
             log("# k1 " + json.dumps(line))
             del q, k, v, q32, k32, v32, out, ref
     torch.cuda.empty_cache()
-    return [entry]
+    return entry
+
+
+def k2_phase(S: int):
+    """Windowed cache write at the three classes the streaming table gives
+    it with S slots; bit-exact against the plain version."""
+    from streamkit_tpu_torch.ops import cache_write as cw
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    entry = None
+    # (label, G, F, T, c, dtype): encoder caches (4 kinds, 20 heads x 64),
+    # their scales, decoder folds (dec_t = 64 at a 32-token budget, c =
+    # max_steps = 3)
+    for label, G, F_, T, c, dtype in [("int8 enc cache", 32, 1280, 512, 16, torch.int8),
+                                      ("f32 scales", 32, 20, 512, 16, torch.float32),
+                                      ("bf16 fold", 32, 1280, 64, 3, torch.bfloat16)]:
+        def rand(*shape):
+            if dtype == torch.int8:
+                return torch.randint(-127, 128, shape, device="cuda", generator=g, dtype=torch.int8)
+            return torch.randn(shape, device="cuda", generator=g).to(dtype)
+
+        cache, upd = rand(G, S, F_, T), rand(G, S, F_, c)
+        # correctness: row 0 wraps, row 1 writes nothing, the rest random
+        pos = torch.randint(0, T, (S,), device="cuda", generator=g, dtype=torch.int32)
+        lim = torch.randint(0, c + 1, (S,), device="cuda", generator=g, dtype=torch.int32)
+        pos[0], lim[0], lim[1] = T - 2, c, 0
+        want = cw.windowed_write_reference(cache.clone(), upd, pos, lim)
+        got = cw.windowed_write_groups(cache.clone(), upd, pos, lim)
+        torch.cuda.synchronize()
+        exact = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        if not exact:
+            raise AssertionError(f"windowed_write {label}: differs from the plain version")
+        # timing on the steady state: every row writes its whole window, so
+        # one scatter_ along the time axis computes the same function
+        lim_full = torch.full((S,), c, device="cuda", dtype=torch.int32)
+        idx = ((pos.long()[:, None] + torch.arange(c, device="cuda")) % T)[None, :, None, :].expand(G, S, F_, c)
+        scat = cache.clone().scatter_(-1, idx, upd)
+        kern = cw.windowed_write_groups(cache.clone(), upd, pos, lim_full)
+        if not torch.equal(scat.view(torch.uint8), kern.view(torch.uint8)):
+            raise AssertionError(f"windowed_write {label}: scatter_ yardstick computes another function")
+        nbytes = 2 * G * F_ * int(lim_full.sum()) * cache.element_size() + 8 * S
+        bound = nbytes / H100_BYTES * 1e3
+        work = cache.clone()
+        kt = kernel_ms(lambda: cw.windowed_write_groups(work, upd, pos, lim_full))
+        pt = kernel_ms(lambda: cw.windowed_write_reference(work, upd, pos, lim_full), iters=10)
+        lt = kernel_ms(lambda: work.scatter_(-1, idx, upd))
+        ms, plain_ms, lib_ms = kt["ms"], pt["ms"], lt["ms"]
+        line = dict(case=label, shape=[G, S, F_, T], c=c, dtype=str(dtype).split(".")[-1], bit_exact=exact,
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bytes=nbytes,
+                    event_ms=kt["event_ms"], plain_event_ms=pt["event_ms"], library_event_ms=lt["event_ms"])
+        log("# k2 " + json.dumps(line))
+        if entry is None:  # the int8 encoder caches: 4 of the 10 launches per call
+            entry = {"name": "windowed_write", "route": "cuda",
+                     "source": "streamkit_tpu_torch/csrc/cache_write.cu",
+                     "replaces": "streamkit_tpu/ops/cache_write.py:209",
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "library_ms": lib_ms}
+        del cache, upd, want, got, scat, kern, work, idx
+    torch.cuda.empty_cache()
+    return entry
+
+
+def k3_phase(S: int):
+    """History attention at [S, 20, 16, 64, 512] in bf16 and f32 against the
+    plain version run in f32, and a pos = 0 row that must not see history."""
+    from streamkit_tpu_torch.ops import stream_attention as sa
+
+    B, H, c, hd, T = S, 20, 16, 64, 512
+    g = torch.Generator(device="cuda").manual_seed(2)
+    i8 = lambda *s: torch.randint(-127, 128, s, device="cuda", generator=g, dtype=torch.int8)  # noqa: E731
+    sc = lambda *s: torch.rand(s, device="cuda", generator=g) * 0.02 + 0.001  # noqa: E731
+    q32 = torch.randn(B, H, c, hd, device="cuda", generator=g) * 0.3
+    kw = dict(k8=i8(B, H, hd, T), ks=sc(B, H, T), v8=i8(B, H, hd, T), vs=sc(B, H, T),
+              ck8=i8(B, H, hd, c), cks=sc(B, H, c), cv8=i8(B, H, hd, c), cvs=sc(B, H, c))
+    # a fresh row, a full history, and rows in between (the engine's mix)
+    pos = torch.linspace(0, T, B, device="cuda").round().to(torch.int32)
+    op = hd ** -0.25
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32):
+        qs = q32.to(dtype)
+        out = sa.history_attention(qs, **kw, pos=pos, op_scale=op)
+        torch.cuda.synchronize()
+        ref = sa.history_attention_reference(qs.float(), **kw, pos=pos, op_scale=op)
+        err = (out - ref).abs().max().item()
+        if dtype == torch.float32:
+            tol = 1e-4
+        else:
+            tol = 2 * (sa.history_attention_reference(qs, **kw, pos=pos, op_scale=op) - ref).abs().max().item()
+        # history must not leak into a pos = 0 row
+        junk = dict(kw, k8=torch.full_like(kw["k8"], 99), v8=torch.full_like(kw["v8"], -99))
+        leak = (sa.history_attention(qs, **junk, pos=pos, op_scale=op) - out)[0].abs().max().item()
+        line = dict(shape=[B, H, c, hd, T], dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
+                    pos0_leak=leak)
+        if not math.isfinite(err) or err > tol or leak != 0.0:
+            raise AssertionError(f"history_attention {dtype}: {line}")
+        if dtype == torch.bfloat16:
+            rows = pos.long()
+            hist_cols = int(rows.sum())  # the kernel reads only the valid history columns
+            nbytes = (qs.numel() * qs.element_size() + out.numel() * 4 + 4 * B
+                      + H * hist_cols * (2 * hd + 8) + B * H * c * (2 * hd + 8))
+            flops = 4 * H * c * hd * (hist_cols + B * c)
+            t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
+            kt = kernel_ms(lambda: sa.history_attention(qs, **kw, pos=pos, op_scale=op))
+            pt = kernel_ms(lambda: sa.history_attention_reference(qs, **kw, pos=pos, op_scale=op), iters=10)
+            ms, plain_ms = kt["ms"], pt["ms"]
+            line.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_ops, t_bytes),
+                        event_ms=kt["event_ms"], plain_event_ms=pt["event_ms"],
+                        bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=nbytes, flops=flops)
+            entry = {"name": "history_attention", "route": "cuda",
+                     "source": "streamkit_tpu_torch/csrc/stream_attention.cu",
+                     "replaces": "streamkit_tpu/ops/stream_attention.py:147",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": line["bound_ms"],
+                     "bound_by": line["bound_by"], "library_ms": None}
+        else:
+            line.update(kernel_ms(lambda: sa.history_attention(qs, **kw, pos=pos, op_scale=op)))
+        log("# k3 " + json.dumps(line))
+    log("# k3 library: no single PyTorch call takes int8 K/V with per-column scales and the two masks")
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -274,10 +471,10 @@ async def serve(params, cfg, ring, batcher, sessions):
     return out
 
 
-def main_path(kernels):
+def segment_final_path():
+    """Path 3; returns the launch counts of its run."""
     from streamkit_tpu_torch.engine import DeviceBatcher, SessionAudioRing
     from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, init_params, transcribe_window
-    from streamkit_tpu_torch.ops.attention import flash_attention
 
     cfg = WHISPER_CONFIGS["large-v3"]
     t0 = time.monotonic()
@@ -290,14 +487,15 @@ def main_path(kernels):
     ring = SessionAudioRing(max_slots=16, device="cuda")
     batcher = DeviceBatcher(device="cuda")
 
-    flash_attention.launches = 0  # counts from here to the end of the main path
+    reset_counts()  # counts from here to the end of this path
     t0 = time.monotonic()
     results = asyncio.run(serve(params, cfg, ring, batcher, sessions))
     t_serve = time.monotonic() - t0
     t0 = time.monotonic()
     tok_w, len_w = transcribe_window(params, cfg, sessions[0])
     t_window = time.monotonic() - t0
-    launches = flash_attention.launches
+    counts = read_counts()
+    launches = counts["flash_attention"]
 
     stats = batcher.stats()
     for r in results:
@@ -315,17 +513,236 @@ def main_path(kernels):
     if not (tok_w.shape == (1, 224) and 1 <= int(len_w[0]) <= 224):
         raise AssertionError(f"bad transcribe_window output {tok_w.shape} {len_w}")
     log("# batcher " + json.dumps(stats))
-    log(f"# main path wall: serve {t_serve * 1e3:.1f} ms, transcribe_window {t_window * 1e3:.1f} ms")
+    log(f"# segment-final path wall: serve {t_serve * 1e3:.1f} ms, transcribe_window {t_window * 1e3:.1f} ms")
 
     kinds = stats["kinds"]
     encodes = sum(v["calls"] for k, v in kinds.items() if k.startswith(("whisper_ring:", "whisper_detect:"))) + 1
     want = cfg.n_audio_layer * encodes
     log(f"# flash_attention launches {launches} over {encodes} encodes (expected {want})")
-    if launches != want or launches == 0:
-        raise AssertionError(f"flash_attention launched {launches} times, expected {want}")
-    for k in kernels:
-        k["launches"] = launches
-    return kernels
+    if launches != want or launches == 0 or counts["windowed_write"] or counts["history_attention"]:
+        raise AssertionError(f"segment-final path launches {counts}, expected {want} flash_attention only")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 2b. the streaming table: cuda == cpu on a small f32 config through K2, K3
+# ---------------------------------------------------------------------------
+def stream_context_phase():
+    from streamkit_tpu_torch.engine import SessionAudioRing
+    from streamkit_tpu_torch.models.whisper import StreamTable, WhisperConfig, init_params
+    from streamkit_tpu_torch.models.whisper.streaming import CHUNK_SAMPLES, RIGHT_CTX
+    from streamkit_tpu_torch.ops.vad import VAD_FRAME
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    cfg = WhisperConfig(n_mels=80, n_audio_ctx=256, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+                        n_vocab=51865, n_text_ctx=32, n_text_state=128, n_text_head=2, n_text_layer=2)
+    S, n_steps, block = 3, 6, 8 * VAD_FRAME
+    prefix = np.asarray([cfg.token_sot, cfg.token_language(0), cfg.token_transcribe, cfg.token_no_timestamps])
+    audio = np.stack([synth_speech(n_steps * block / SR + 0.1, seed=s)[: n_steps * block] for s in range(S)])
+
+    def run(device, params):
+        ring = SessionAudioRing(max_slots=S + 1, ring_samples=1 << 16, device=device)
+        for k in range(S):
+            ring.alloc()
+        tbl = StreamTable(cfg, torch.float32, max_slots=S, enc_t=256, dec_t=32, kv_int8=True, device=device)
+        tip, probs = 0, []
+        for step in range(n_steps):
+            written = step * block
+            n_req = max(0, min((written + block - RIGHT_CTX - tip) // CHUNK_SAMPLES, 2))
+            meta = np.stack([np.concatenate([[s, s, written, tip, n_req, int(step > 0), int(step == 0)], prefix])
+                             for s in range(S)]).astype(np.int32)
+            frames = audio[:, written : written + block].reshape(S, 8, VAD_FRAME)
+            probs.append(tbl.step(params, ring, meta, None, None, None, None, None, frames, max_steps=3)[0].cpu())
+            tip += n_req * CHUNK_SAMPLES
+        return tbl, torch.cat(probs, 1)
+
+    def make():
+        p = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
+        with torch.no_grad():  # sharper cross-attention: the greedy path follows the audio
+            for layer in p.dec.layers:
+                layer.xattn.q.w.mul_(10.0)
+                layer.xattn.k.w.mul_(10.0)
+                layer.xattn.o.w.mul_(3.0)
+        return p
+
+    cpu, gpu = make(), make().to("cuda")
+    reset_counts()
+    tg, pg = run("cuda", gpu)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    tc, pc = run("cpu", cpu)
+    report = {"tokens": tg._tokens.tolist(), "n_tok": tg._n_tok.tolist(), "enc_pos": tg._enc_pos.tolist(),
+              "launches": counts, "vad_max_abs_err": (pg - pc).abs().max().item()}
+    for name in ("_tokens", "_n_tok", "_fed", "_enc_pos"):
+        if not torch.equal(getattr(tg, name).cpu(), getattr(tc, name)):
+            raise AssertionError(f"stream context: {name} differs between cuda and cpu: {report}")
+    # limits: int8 codes off by at most one on at most 0.1% of entries,
+    # scales and the f32 decoder caches within 1e-4
+    for w in ("enc_k", "enc_v", "xk", "xv", "dec_k", "dec_v"):
+        a, b = tg.cache_view(w), tc.cache_view(w)
+        if isinstance(a, tuple):
+            d = np.abs(a[0].astype(np.int32) - b[0].astype(np.int32))
+            report[w] = {"codes_off": float((d > 0).mean()), "max_code_diff": int(d.max()),
+                         "scale_max_rel": float((np.abs(a[1] - b[1]) / np.maximum(b[1], 1e-12)).max())}
+            ok = d.max() <= 1 and (d > 0).mean() <= 1e-3 and report[w]["scale_max_rel"] <= 1e-4
+        else:
+            report[w] = {"max_abs_err": float(np.abs(a - b).max())}
+            ok = report[w]["max_abs_err"] <= 1e-4
+        if not ok:
+            raise AssertionError(f"stream context: {w} differs between cuda and cpu: {report}")
+    want = {"flash_attention": 0, "windowed_write": 10 * n_steps, "history_attention": cfg.n_audio_layer * n_steps}
+    log("# stream context " + json.dumps(report))
+    if report["vad_max_abs_err"] > 1e-4 or counts != want or int(tg._n_tok.min()) <= 4:
+        raise AssertionError(f"stream context: launches {counts} (want {want}), {report}")
+
+
+# ---------------------------------------------------------------------------
+# 4. live-partials path: SttServingEngine at large-v3 width
+# ---------------------------------------------------------------------------
+async def run_engine(final_mode: str, n_sessions: int, speech_s: float, seed0: int):
+    from streamkit_tpu_torch.engine import SttServingEngine
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    eng = SttServingEngine(model_size="large-v3", dtype="bfloat16", max_sessions=n_sessions,
+                           final_mode=final_mode, device="cuda")
+    t0 = time.monotonic()
+    await eng.start()
+    t_start = time.monotonic() - t0
+    events = {i: [] for i in range(n_sessions)}
+    sids = [eng.open_session(lambda ev, i=i: events[i].append(ev)) for i in range(n_sessions)]
+    audio = [np.concatenate([synth_speech(speech_s, seed=seed0 + i), np.zeros(SR, np.float32)])
+             for i in range(n_sessions)]
+    t0 = time.monotonic()
+    for off in range(0, audio[0].size, SR // 2):  # 0.5 s pieces every 50 ms: 10x real time
+        for i, sid in enumerate(sids):
+            eng.push(sid, audio[i][off : off + SR // 2])
+        await asyncio.sleep(0.05)
+    deadline = time.monotonic() + 300
+    n_blocks = audio[0].size // eng.block_samples
+    while time.monotonic() < deadline:
+        done = eng.batcher.stats()["kinds"].get(eng._sstep_kind, {}).get("items", 0) >= n_blocks * n_sessions
+        if done and all(s.q.empty() and not s.processing for s in eng._sessions.values()):
+            break
+        await asyncio.sleep(0.1)
+    t_serve = time.monotonic() - t0
+    for sid in sids:
+        eng.close_session(sid)
+    await eng.stop()
+    stats = eng.batcher.stats()
+    out = dict(mode=final_mode, sessions=n_sessions, start_s=t_start, serve_s=t_serve, stats=stats,
+               finals_stream=eng.finals_stream, finals_fallback=eng.finals_fallback, sstep_kind=eng._sstep_kind,
+               trace_calls=eng.trace_calls)
+    del eng
+    torch.cuda.empty_cache()
+    return events, out
+
+
+def check_events(events, mode):
+    for i, evs in events.items():
+        types = [e["type"] for e in evs]
+        seqs = [e["seq"] for e in evs]
+        ok = ("speech_start" in types and "final" in types and ("partial" in types or mode == "exact")
+              and seqs == sorted(seqs))
+        texts = [e for e in evs if "text" in e]
+        ok = ok and [e["seq"] for e in texts] == list(range(len(texts)))
+        ok = ok and all(e["end_ms"] > e["start_ms"] >= 0 for e in texts if e["type"] == "final")
+        log(f"# {mode} session {i}: " + json.dumps({t: types.count(t) for t in sorted(set(types))}))
+        if not ok:
+            raise AssertionError(f"{mode} session {i}: bad event flow {evs}")
+
+
+def live_partials_path(cfg_layers: int = 32):
+    """Path 4; returns the launch counts of its run."""
+    os.environ["SK_STT_TRACE"] = "1"  # per-call wall times of the fused step
+    reset_counts()  # counts from here to the end of this path
+    t0 = time.monotonic()
+    ev_s, out_s = asyncio.run(run_engine("stream", 8, 8.0, seed0=0))
+    ev_x, out_x = asyncio.run(run_engine("exact", 2, 8.0, seed0=100))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t_path = time.monotonic() - t0
+    check_events(ev_s, "stream")
+    check_events(ev_x, "exact")
+    calls = 0
+    flash_encodes = 0
+    for out in (out_s, out_x):
+        kinds = out["stats"]["kinds"]
+        step = kinds[out["sstep_kind"]]
+        calls += step["calls"]
+        # an exact-final ring decode of >= 8 s has >= 256 encoder positions: K1
+        flash_encodes += sum(v["calls"] for k, v in kinds.items()
+                             if k.startswith("whisper_ring:") and int(k.rsplit(":", 1)[1]) >= 8 * SR)
+        walls = [c[3] - c[0] for c in out["trace_calls"]]
+        log(f"# {out['mode']} engine " + json.dumps({
+            "start_s": out["start_s"], "serve_s": out["serve_s"], "fused_calls": step["calls"],
+            "fused_items": step["items"], "fused_mean_batch": step["items"] / max(step["calls"], 1),
+            "fused_call_ms_mean": 1e3 * float(np.mean(walls)), "fused_call_ms_median": 1e3 * float(np.median(walls)),
+            "fused_call_ms_max": 1e3 * float(np.max(walls)), "finals_stream": out["finals_stream"],
+            "finals_fallback": out["finals_fallback"], "batcher": out["stats"]}))
+    want = {"flash_attention": cfg_layers * flash_encodes, "windowed_write": 10 * calls,
+            "history_attention": cfg_layers * calls}
+    log(f"# live-partials path: launches {counts}, expected {want}; wall {t_path:.1f} s")
+    if counts != want or calls == 0:
+        raise AssertionError(f"live-partials path launched {counts}, expected {want}")
+    return counts
+
+
+def profile_fused_step(S: int = 8, warm: int = 4, steps: int = 3):
+    """Where one fused step's time goes at the live-partials path's shape
+    (large-v3 bf16, S = 8 slots, every row speaking): host wall per call
+    against the device's kernel time, by kernel."""
+    from streamkit_tpu_torch.engine import SessionAudioRing
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, StreamTable, init_params
+    from streamkit_tpu_torch.models.whisper.streaming import CHUNK_SAMPLES, RIGHT_CTX
+    from streamkit_tpu_torch.ops.vad import VAD_FRAME
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    cfg = WHISPER_CONFIGS["large-v3"]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, device="cuda")
+    ring = SessionAudioRing(max_slots=S, device="cuda")
+    for _ in range(S):
+        ring.alloc()
+    tbl = StreamTable(cfg, torch.bfloat16, max_slots=S, dec_t=64, kv_int8=True, device="cuda")
+    block = 8 * VAD_FRAME
+    n = warm + 2 * steps
+    audio = np.stack([synth_speech(n * block / SR + 0.1, seed=50 + s)[: n * block] for s in range(S)])
+    prefix = [cfg.token_sot, cfg.token_language(0), cfg.token_transcribe, cfg.token_no_timestamps]
+    state = {"tip": 0, "step": 0}
+
+    def one():
+        step, tip = state["step"], state["tip"]
+        written = step * block
+        n_req = max(0, min((written + block - RIGHT_CTX - tip) // CHUNK_SAMPLES, 2))
+        meta = np.asarray([[s, s, written, tip, n_req, 1, int(step == 0)] + prefix for s in range(S)], np.int32)
+        out = tbl.step(params, ring, meta, None, None, None, None, None,
+                       audio[:, written : written + block].reshape(S, 8, VAD_FRAME), max_steps=3)
+        [o.cpu() for o in out]  # the engine's fetch
+        state["step"], state["tip"] = step + 1, tip + n_req * CHUNK_SAMPLES
+
+    for _ in range(warm):
+        one()
+    t0 = time.monotonic()
+    for _ in range(steps):  # unprofiled: the profiler's host overhead stays out of the wall time
+        one()
+    wall_ms = (time.monotonic() - t0) / steps * 1e3
+    ks = device_kernels(one, steps)
+    by_name: dict = {}
+    for e in ks:
+        d = by_name.setdefault(e.name, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(v[1] for v in by_name.values()) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    share = lambda key: sum(v[1] for k, v in by_name.items() if key in k) / steps  # noqa: E731
+    report = {"wall_ms_per_call": wall_ms, "device_ms_per_call": busy,
+              "device_idle_share": 1.0 - busy / wall_ms, "kernels_per_call": len(ks) / steps,
+              "windowed_write_ms": share("windowed_write"), "history_attention_ms": share("history_attention"),
+              "top": [[k[:80], v[0] / steps, v[1] / steps] for k, v in top]}
+    log("# fused-step profile " + json.dumps(report))
+    del params, tbl
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -336,16 +753,28 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    build_phase()
     t0 = time.monotonic()
-    kernels = kernel_phase()
+    k1, k2, k3 = k1_phase(), k2_phase(8), k3_phase(8)
     log(f"# kernel phase {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     context_phase()
+    stream_context_phase()
     log(f"# context phase {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    kernels = main_path(kernels)
-    log(f"# main path {time.monotonic() - t0:.1f} s")
-    log(json.dumps({"kernels": kernels}))
+    seg = segment_final_path()
+    log(f"# segment-final path {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    live = live_partials_path()
+    log(f"# live-partials path {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    profile_fused_step()
+    log(f"# fused-step profile {time.monotonic() - t0:.1f} s")
+    k1.update(launches=seg["flash_attention"], path="segment-final",
+              launches_live_partials=live["flash_attention"])
+    k2.update(launches=live["windowed_write"], path="live-partials")
+    k3.update(launches=live["history_attention"], path="live-partials")
+    log(json.dumps({"kernels": [k1, k2, k3]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

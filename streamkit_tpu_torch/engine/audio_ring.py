@@ -22,8 +22,9 @@ the longest segment (30 s) plus the closing silence (0.7 s).
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -31,7 +32,14 @@ import torch
 from ..device import resolve_device
 from ..ops.vad import vad_frame_probs, vad_init_state
 
-__all__ = ["SessionAudioRing", "RING_SAMPLES", "pcm_to_wire", "ring_append_rows", "gather_ring_window"]
+__all__ = [
+    "SessionAudioRing",
+    "RING_SAMPLES",
+    "get_audio_ring",
+    "pcm_to_wire",
+    "ring_append_rows",
+    "gather_ring_window",
+]
 
 RING_SAMPLES = 1 << 19  # 32.768 s @ 16 kHz
 
@@ -98,6 +106,7 @@ class SessionAudioRing:
         self._init_row = vad_init_state((), self.device)
         self._ring = torch.zeros((max_slots, ring_samples), dtype=torch.int16, device=self.device)
         self._free: List[int] = list(range(max_slots - 1, -1, -1))
+        self._trash = None
         self._alloc_lock = threading.Lock()
         # serializes VAD steps (in-place state) and ring swaps; decode
         # readers snapshot the ring under it but run outside it
@@ -119,6 +128,17 @@ class SessionAudioRing:
     def free(self, slot: int) -> None:
         with self._alloc_lock:
             self._free.append(slot)
+
+    def trash_slot(self) -> int:
+        """Process-shared parking slot for the inert rows of identity-packed
+        fused batches (duplicate writes of garbage, never read). Allocated
+        once, at first use, and never freed."""
+        with self._alloc_lock:
+            if self._trash is None:
+                if not self._free:
+                    raise RuntimeError(f"audio ring table exhausted ({self.max_slots} slots)")
+                self._trash = self._free.pop()
+            return self._trash
 
     @property
     def in_use(self) -> int:
@@ -148,3 +168,20 @@ class SessionAudioRing:
         write a ring tensor after it has been handed out."""
         with self._step_lock:
             return self._ring
+
+
+# process-wide rings, one per device (slots are allocated per session)
+_RINGS: Dict[str, SessionAudioRing] = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def get_audio_ring(device=None) -> SessionAudioRing:
+    """The process-wide :class:`SessionAudioRing` on ``device`` (default
+    ``cuda``), ``SK_RING_SLOTS`` slots (default 128) at first creation."""
+    dev = resolve_device(device)
+    with _RINGS_LOCK:
+        ring = _RINGS.get(str(dev))
+        if ring is None:
+            ring = SessionAudioRing(max_slots=int(os.environ.get("SK_RING_SLOTS", "128")), device=dev)
+            _RINGS[str(dev)] = ring
+        return ring

@@ -1,7 +1,10 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Device ops ported so far: PCM conversion, log-mel, flash attention, VAD."""
+"""Device ops ported so far: PCM conversion, log-mel, flash attention, VAD,
+the streaming caches' windowed write and int8-history attention."""
 
 from .attention import attention_reference, flash_attention
+from .cache_write import windowed_write, windowed_write_groups
+from .stream_attention import history_attention
 from .dsp import f32_to_s16le, s16le_to_f32
 from .mel import log_mel_spectrogram, mel_filterbank
 from .vad import VAD_CONTEXT, VAD_FRAME, VadState, vad_frame_probs, vad_init_state

@@ -6,7 +6,8 @@ Port of ``streamkit_tpu/ops/attention.py``. The kernel
 (``_flash_kernel`` and the library ``_lib_flash``); its header notes the
 design and the bound on an H100. It is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library on first CUDA use and loaded with
-``ctypes``; importing this module needs neither ``nvcc`` nor a card.
+``ctypes`` (:mod:`._build`); importing this module needs neither ``nvcc``
+nor a card.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises on
 what the kernel does not take. Only CPU tensors go to the plain version,
@@ -16,30 +17,20 @@ what the kernel does not take. Only CPU tensors go to the plain version,
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
-import time
 
 import torch
 
-__all__ = ["flash_attention", "attention_reference", "build_kernel"]
+from . import _build
+
+__all__ = ["flash_attention", "attention_reference", "SOURCE"]
 
 _LOG2E = math.log2(math.e)
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "flash_attention.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+SOURCE = _build.Source("flash_attention.cu", "nvcc")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
-_lib = None
 
 
 def attention_reference(q, k, v, scale: float) -> torch.Tensor:
@@ -50,54 +41,15 @@ def attention_reference(q, k, v, scale: float) -> torch.Tensor:
     return torch.matmul(probs, v).to(q.dtype)
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the flash-attention kernel cannot be built")
-    return path
-
-
-def build_kernel() -> str:
-    """Compile ``csrc/flash_attention.cu`` (once per source revision) and
-    return the library path. ``build_kernel.seconds`` holds the compile time
-    of this process's build (0.0 when the library was already there)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"libsk_flash_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.monotonic()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
+def _declare(lib) -> None:
+    fn = lib.sk_flash_attention
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
     )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_kernel.seconds = time.monotonic() - t0
-    return out
-
-
-build_kernel.seconds = 0.0
-
-
-def _library():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_kernel())
-            fn = lib.sk_flash_attention
-            fn.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-            lib.sk_error_string.argtypes = [ctypes.c_int]
-            lib.sk_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    fn.restype = ctypes.c_int
+    lib.sk_error_string.argtypes = [ctypes.c_int]
+    lib.sk_error_string.restype = ctypes.c_char_p
 
 
 def _check(q, k, v) -> None:
@@ -134,12 +86,11 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     _check(q, k, v)
-    lib = _library()
+    lib = _build.load(SOURCE, _declare)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.sk_flash_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, tq, tk, d,

@@ -66,10 +66,12 @@ def test_kernel_checks_reject_cpu_tensors():
 
 def test_failed_build_raises(tmp_path, monkeypatch):
     """No nvcc → the build raises (never a silent fallback)."""
-    monkeypatch.setattr(tattn, "BUILD_DIR", str(tmp_path / "build"))
+    from streamkit_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc"):
-        tattn.build_kernel()
+        _build.build(tattn.SOURCE)
 

@@ -21,6 +21,8 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.engine
     import streamkit_tpu_torch.engine.audio_ring
     import streamkit_tpu_torch.engine.batcher
+    import streamkit_tpu_torch.engine.ingest
+    import streamkit_tpu_torch.engine.stt_serving
     import streamkit_tpu_torch.models
     import streamkit_tpu_torch.models.silero_vad
     import streamkit_tpu_torch.models.whisper
@@ -28,12 +30,18 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.models.whisper.decode
     import streamkit_tpu_torch.models.whisper.load
     import streamkit_tpu_torch.models.whisper.model
+    import streamkit_tpu_torch.models.whisper.streaming
     import streamkit_tpu_torch.models.whisper.tokenizer
+    import streamkit_tpu_torch.nodes.ml.vad_node
     import streamkit_tpu_torch.ops
+    import streamkit_tpu_torch.ops._build
     import streamkit_tpu_torch.ops.attention
+    import streamkit_tpu_torch.ops.cache_write
     import streamkit_tpu_torch.ops.dsp
     import streamkit_tpu_torch.ops.mel
+    import streamkit_tpu_torch.ops.stream_attention
     import streamkit_tpu_torch.ops.vad
+    import streamkit_tpu_torch.utils.speechsynth
     new = set(sys.modules) - before
     bad = sorted(
         m for m in new
@@ -46,8 +54,8 @@ _SCRIPT = textwrap.dedent(
 
     import torch
     if not torch.cuda.is_available():
-        from streamkit_tpu_torch.engine import DeviceBatcher, SessionAudioRing
-        from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, init_params
+        from streamkit_tpu_torch.engine import DeviceBatcher, SessionAudioRing, SttServingEngine, get_audio_ring
+        from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, StreamTable, init_params
         from streamkit_tpu_torch.ops.vad import vad_init_state
 
         for name, call in [
@@ -55,6 +63,9 @@ _SCRIPT = textwrap.dedent(
             ("SessionAudioRing", lambda: SessionAudioRing(max_slots=2, ring_samples=1024)),
             ("DeviceBatcher", lambda: DeviceBatcher()),
             ("vad_init_state", lambda: vad_init_state()),
+            ("get_audio_ring", lambda: get_audio_ring()),
+            ("StreamTable", lambda: StreamTable(WHISPER_CONFIGS["tiny"], torch.float32, max_slots=1)),
+            ("SttServingEngine", lambda: SttServingEngine()),
         ]:
             try:
                 call()

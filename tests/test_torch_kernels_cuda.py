@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from streamkit_tpu_torch.ops import attention as tattn
+from streamkit_tpu_torch.ops import cache_write as tcw
+from streamkit_tpu_torch.ops import stream_attention as tsa
 
 
 @pytest.mark.cuda
@@ -55,3 +57,111 @@ def test_flash_attention_rejects_what_it_cannot_take():
     q = torch.zeros(1, 2, 64, 256, device="cuda").transpose(-1, -2)
     with pytest.raises(ValueError, match="unit head_dim stride"):
         tattn.flash_attention(q, q, q, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "G,S,F,T,c,dtype",
+    [
+        (32, 3, 1280, 512, 16, torch.int8),  # encoder caches
+        (32, 3, 20, 512, 16, torch.float32),  # their scales
+        (32, 3, 1280, 64, 3, torch.bfloat16),  # decoder folds
+        (2, 2, 5, 37, 37, torch.float64),  # odd sizes, window = ring
+    ],
+)
+def test_windowed_write_matches_plain(G, S, F, T, c, dtype):
+    """Bit-exact against the plain version, with a wrapping row and a lim = 0 row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    if dtype == torch.int8:
+        cache = torch.randint(-127, 128, (G, S, F, T), device="cuda", generator=g, dtype=torch.int8)
+        upd = torch.randint(-127, 128, (G, S, F, c), device="cuda", generator=g, dtype=torch.int8)
+    else:
+        cache = torch.randn(G, S, F, T, device="cuda", generator=g).to(dtype)
+        upd = torch.randn(G, S, F, c, device="cuda", generator=g).to(dtype)
+    pos = torch.tensor([T - 2, 0, 8][:S], dtype=torch.int32, device="cuda")
+    lim = torch.tensor([c, 0, max(c - 1, 1)][:S], dtype=torch.int32, device="cuda")
+    want = tcw.windowed_write_reference(cache.clone(), upd, pos, lim)
+    before = tcw.windowed_write_groups.launches
+    got = tcw.windowed_write_groups(cache, upd, pos, lim)
+    torch.cuda.synchronize()
+    assert got is cache and tcw.windowed_write_groups.launches == before + 1
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,c,hd,T", [(4, 20, 16, 64, 512), (2, 3, 8, 32, 200), (1, 2, 24, 128, 77)])
+def test_history_attention_matches_plain(dtype, B, H, c, hd, T):
+    """Kernel vs the plain version run in f32 (f32 atol 1e-4; bf16 within
+    twice the plain version's own bf16 error), one fresh row (pos = 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    i8 = lambda *s: torch.randint(-127, 128, s, device="cuda", generator=g, dtype=torch.int8)  # noqa: E731
+    sc = lambda *s: torch.rand(s, device="cuda", generator=g) * 0.02 + 0.001  # noqa: E731
+    q32 = torch.randn(B, H, c, hd, device="cuda", generator=g) * 0.3
+    kw = dict(k8=i8(B, H, hd, T), ks=sc(B, H, T), v8=i8(B, H, hd, T), vs=sc(B, H, T),
+              ck8=i8(B, H, hd, c), cks=sc(B, H, c), cv8=i8(B, H, hd, c), cvs=sc(B, H, c))
+    pos = torch.tensor([0, T, 3, 100][:B], dtype=torch.int32, device="cuda")
+    op = hd ** -0.25
+    before = tsa.history_attention.launches
+    out = tsa.history_attention(q32.to(dtype), **kw, pos=pos, op_scale=op)
+    torch.cuda.synchronize()
+    assert tsa.history_attention.launches == before + 1
+    ref = tsa.history_attention_reference(q32.to(dtype).float(), **kw, pos=pos, op_scale=op)
+    if dtype == torch.float32:
+        tol = 1e-4
+    else:
+        tol = 2 * (tsa.history_attention_reference(q32.to(dtype), **kw, pos=pos, op_scale=op) - ref).abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_fused_stream_step_on_cuda_matches_cpu():
+    """Fused identity-mode int8 steps on the card (K2 ten times and K3 once
+    per encoder layer per call) against the same steps on the CPU: equal
+    tokens and positions, int8 codes off by at most one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from streamkit_tpu_torch.engine.audio_ring import SessionAudioRing
+    from streamkit_tpu_torch.models.whisper import StreamTable, WhisperConfig, init_params
+
+    cfg = WhisperConfig(n_mels=80, n_audio_ctx=64, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+                        n_vocab=512, n_text_ctx=32, n_text_state=128, n_text_head=2, n_text_layer=2)
+    S, block = 2, 8 * 512
+    rng = np.random.RandomState(0)
+    audio = (rng.randn(S, 3 * block) * 0.2).astype(np.float32)
+    prefix = [1, 2, 3, 4]
+
+    def run(device, params):
+        ring = SessionAudioRing(max_slots=S, ring_samples=1 << 14, device=device)
+        for _ in range(S):
+            ring.alloc()
+        tbl = StreamTable(cfg, torch.float32, max_slots=S, enc_t=64, dec_t=32, kv_int8=True, device=device)
+        tip = 0
+        for step in range(3):
+            written = step * block
+            n_req = max(0, min((written + block - 200 - tip) // 2560, 2))
+            meta = np.asarray([[s, s, written, tip, n_req, int(step > 0), int(step == 0)] + prefix
+                               for s in range(S)], np.int32)
+            tbl.step(params, ring, meta, None, None, None, None, None,
+                     audio[:, written : written + block].reshape(S, 8, 512), max_steps=3)
+            tip += n_req * 2560
+        return tbl
+
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
+    gpu = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu").to("cuda")
+    before = (tcw.windowed_write_groups.launches, tsa.history_attention.launches)
+    tg = run("cuda", gpu)
+    torch.cuda.synchronize()
+    launched = (tcw.windowed_write_groups.launches - before[0], tsa.history_attention.launches - before[1])
+    tc = run("cpu", cpu)
+    assert launched == (30, 6)
+    for name in ("_tokens", "_n_tok", "_enc_pos"):
+        assert torch.equal(getattr(tg, name).cpu(), getattr(tc, name)), name
+    codes = np.abs(tg.cache_view("enc_k")[0].astype(int) - tc.cache_view("enc_k")[0].astype(int))
+    assert codes.max() <= 1 and (codes > 0).mean() <= 1e-3
