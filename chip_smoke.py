@@ -6,13 +6,16 @@
 0. Builds every native source of the port at once, one compiler each:
    ``csrc/flash_attention.cu``, ``csrc/cache_write.cu`` and
    ``csrc/stream_attention.cu`` with nvcc for sm_90a, ``csrc/ingest.cpp``
-   with g++.
+   with g++, and prints ptxas's report per kernel (registers, shared
+   memory, spills, warnings).
 1. Holds each hand-written kernel against its plain PyTorch version on the
    card at the shapes the main paths give it, then times kernel, plain
    version and (where one exists) the single PyTorch call that computes the
    same function, a yardstick the port never calls:
    K1 flash attention (f32 within 1e-4 of the plain version run in f32;
-   bf16 within twice the plain version's own bf16 error);
+   bf16 within twice the plain version's own bf16 error; timed in turns
+   with SDPA: kernel, SDPA, SDPA, kernel; the softmax's exponential count
+   and their time at the SFU's 16 a clock per SM);
    K2 windowed cache write at the int8 encoder caches, their f32 scales and
    the bf16 decoder folds (bit-exact, with a wrapping row and a lim = 0 row);
    K3 int8-history attention at [S, 20, 16, 64, 512] (the K1 limits, and a
@@ -102,7 +105,17 @@ def build_phase() -> None:
     for src in sources:
         log(f"# built {os.path.relpath(src.library())} ({src.compiler}) in "
             f"{_build.build_seconds.get(src.file, 0.0):.1f} s")
+        if src.compiler == "nvcc":  # registers, shared memory and spills per kernel
+            for k in _build.ptxas_summary(_build.report(src)):
+                log(f"# ptxas {src.file} " + json.dumps(k))
     log(f"# build phase wall {time.monotonic() - t0:.1f} s")
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -187,7 +200,7 @@ def k1_phase():
             line = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "tol": tol}
             # what a kernel that forgot the KV-tail mask would return: the
             # zero keys of the last tile join every row's normaliser
-            pad = -t % 64
+            pad = -t % 128  # the kernel's K/V tile: 128 rows
             if pad:
                 zeros = q32.new_zeros(b, h, pad, d)
                 unmasked = attn.attention_reference(q32, torch.cat([k32, zeros], 2), torch.cat([v32, zeros], 2),
@@ -201,14 +214,30 @@ def k1_phase():
                 flops = 4 * b * h * t * t * d
                 nbytes = 4 * b * h * t * d * q.element_size()
                 t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
-                kt = kernel_ms(lambda: attn.flash_attention(q, k, v, scale))
+                # kernel and SDPA in turns (kernel, SDPA, SDPA, kernel)
+                kern = lambda: attn.flash_attention(q, k, v, scale)  # noqa: E731
+                sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)  # noqa: E731
+                turns = [kernel_ms(fn) for fn in (kern, sdpa, sdpa, kern)]
                 pt = kernel_ms(lambda: attn.attention_reference(q, k, v, scale), iters=5)
-                lt = kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5))
-                ms, plain_ms, lib_ms = kt["ms"], pt["ms"], lt["ms"]
+                ms = (turns[0]["ms"] + turns[3]["ms"]) / 2
+                lib_ms = (turns[1]["ms"] + turns[2]["ms"]) / 2
+                plain_ms = pt["ms"]
+                # the softmax's exponentials at 16 a clock on each SM's SFU
+                n_exp = b * h * t * t
+                sfu_ms = n_exp / (16 * torch.cuda.get_device_properties(0).multi_processor_count * sm_clock_hz()) * 1e3
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    kern()
+                host_us = (time.perf_counter() - t0) / 20 * 1e6  # wrapper + tensor maps + launch
+                torch.cuda.synchronize()
                 line.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
-                            event_ms=kt["event_ms"], plain_event_ms=pt["event_ms"], library_event_ms=lt["event_ms"],
+                            turns_ms=[x["ms"] for x in turns], ratio_to_library=ms / lib_ms,
+                            event_ms=turns[0]["event_ms"], plain_event_ms=pt["event_ms"],
+                            library_event_ms=turns[1]["event_ms"],
                             bound_by="operations" if t_ops >= t_bytes else "bytes",
-                            tflops=flops / ms / 1e9)
+                            bound_share=max(t_ops, t_bytes) / ms, tflops=flops / ms / 1e9,
+                            exp2_count=n_exp, sfu_ms=sfu_ms, host_us_per_call=host_us)
                 if b == 4 and t == 1500:  # the batched ring decode
                     entry = {"name": "flash_attention", "route": "cuda",
                              "source": "streamkit_tpu_torch/csrc/flash_attention.cu",
@@ -328,7 +357,8 @@ def k3_phase(S: int):
             ms, plain_ms = kt["ms"], pt["ms"]
             line.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_ops, t_bytes),
                         event_ms=kt["event_ms"], plain_event_ms=pt["event_ms"],
-                        bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=nbytes, flops=flops)
+                        bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=nbytes, flops=flops,
+                        bound_share=max(t_ops, t_bytes) / ms)
             entry = {"name": "history_attention", "route": "cuda",
                      "source": "streamkit_tpu_torch/csrc/stream_attention.cu",
                      "replaces": "streamkit_tpu/ops/stream_attention.py:147",

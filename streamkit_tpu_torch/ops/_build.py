@@ -2,12 +2,17 @@
 """Build and load the port's native sources (``streamkit_tpu_torch/csrc``).
 
 Every source compiles into its own shared library with a plain C interface,
-named by a hash of the source and the flags, under ``_build/`` (git-ignored):
+named by a hash of the source, every local header it includes (``#include
+"x.cuh"``, recursively) and the flags, under ``_build/`` (git-ignored):
 CUDA kernels with ``nvcc`` for ``sm_90a``, the host-side ingest shim with
 ``g++``. A library is built at its first use and loaded with ``ctypes``;
 importing this module needs neither compiler. A failed build raises: there
 is no fallback. :func:`build_all` starts one compiler per source at once, so
 a cold start pays for the slowest file, not the sum.
+
+``nvcc`` runs with ``-Xptxas -v``: its report (registers, shared memory,
+spills per kernel) is kept beside the library as ``<library>.log``, so a
+reused build still has it (:func:`report`, :func:`ptxas_summary`).
 """
 
 from __future__ import annotations
@@ -15,21 +20,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
-__all__ = ["Source", "build", "build_all", "load", "BUILD_DIR", "NVCC_FLAGS", "GXX_FLAGS"]
+__all__ = ["Source", "build", "build_all", "load", "report", "ptxas_summary", "BUILD_DIR", "NVCC_FLAGS",
+           "GXX_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 GXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
 GXX_LIBS = ["-lpthread", "-ldl"]
@@ -55,6 +62,9 @@ def _gxx() -> str:
     return path
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
 @dataclass(frozen=True)
 class Source:
     """One file under ``csrc/`` and the compiler that builds it."""
@@ -66,19 +76,36 @@ class Source:
     def path(self) -> str:
         return os.path.join(CSRC, self.file)
 
-    def _flags(self):
+    def _flags(self) -> List[str]:
         return NVCC_FLAGS if self.compiler == "nvcc" else GXX_FLAGS
 
-    def library(self) -> str:
-        with open(self.path, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(self._flags()).encode()).hexdigest()[:12]
-        stem = os.path.splitext(self.file)[0]
-        return os.path.join(BUILD_DIR, f"libsk_{stem}_{digest}.so")
+    def headers(self) -> List[str]:
+        """The local headers this source includes, directly or through
+        another local header, as paths under ``csrc/`` (sorted)."""
+        seen, todo = set(), [self.path]
+        while todo:
+            with open(todo.pop(), encoding="utf-8") as f:
+                text = f.read()
+            for name in _INCLUDE.findall(text):
+                path = os.path.join(CSRC, name)
+                if path not in seen and os.path.exists(path):
+                    seen.add(path)
+                    todo.append(path)
+        return sorted(seen)
 
-    def command(self, out: str):
+    def library(self) -> str:
+        h = hashlib.sha1()
+        for path in [self.path, *self.headers()]:
+            with open(path, "rb") as f:
+                h.update(os.path.relpath(path, CSRC).encode() + b"\0" + f.read() + b"\0")
+        h.update("\0".join(self._flags()).encode())
+        stem = os.path.splitext(self.file)[0]
+        return os.path.join(BUILD_DIR, f"libsk_{stem}_{h.hexdigest()[:12]}.so")
+
+    def command(self, out: str) -> List[str]:
         if self.compiler == "nvcc":
-            return [_nvcc(), *NVCC_FLAGS, "-o", out, self.path]
-        return [_gxx(), *GXX_FLAGS, "-o", out, self.path, *GXX_LIBS]
+            return [_nvcc(), *self._flags(), "-o", out, self.path]
+        return [_gxx(), *self._flags(), "-o", out, self.path, *GXX_LIBS]
 
 
 def _start(src: Source):
@@ -100,6 +127,9 @@ def _finish(src: Source, job) -> None:
     _, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"{src.compiler} failed on {src.file} ({proc.returncode}):\n{err}")
+    with open(f"{tmp}.log", "w", encoding="utf-8") as f:
+        f.write(err)
+    os.replace(f"{tmp}.log", f"{out}.log")
     os.replace(tmp, out)
     build_seconds[src.file] = time.monotonic() - t0
 
@@ -138,3 +168,47 @@ def load(src: Source, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             declare(lib)
             _loaded[src.file] = lib
         return lib
+
+
+def report(src: Source) -> str:
+    """The compiler's messages from building ``src``'s current library
+    (for nvcc, the ``ptxas`` report); empty if it is not built."""
+    path = f"{src.library()}.log"
+    if not os.path.exists(path):
+        return ""
+    with open(path, encoding="utf-8") as f:
+        return f.read()
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_summary(text: str) -> List[dict]:
+    """Per kernel of a ``ptxas -v`` report: its (mangled) name, registers a
+    thread, static shared memory, stack frame and spill bytes. Warnings
+    (``ptxas warning``, e.g. wgmma serialisation) go to the kernel they
+    follow."""
+    out: List[dict] = []
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            out.append({"kernel": m.group(1), "registers": None, "smem": 0, "stack": 0, "spill_stores": 0,
+                        "spill_loads": 0, "warnings": []})
+            continue
+        if not out:
+            continue
+        cur = out[-1]
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (int(x) for x in m.groups())
+        m = _PTXAS_USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = _PTXAS_SMEM.search(line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+        if "ptxas warning" in line or "Potential Performance Loss" in line:
+            cur["warnings"].append(line.strip())
+    return out

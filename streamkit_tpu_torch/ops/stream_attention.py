@@ -42,15 +42,36 @@ _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on an H100
 _lock = threading.Lock()
 
 
-def _smem_bytes(hd: int, T: int, c: int) -> int:
-    return (8 * hd + 8 * (T + c)) * 4 + hd * 68
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
-def supports(H: int, hd: int, T: int, c: int) -> bool:
+def _smem_bytes(hd: int, T: int, c: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one block, as the kernel lays it out. bf16 (tensor
+    cores, ``Layout`` in the source): a ring of int8 tiles (128 columns,
+    rows of 144 bytes, and their f32 scales; 4 stages, 8 at hd = 32, 2 at
+    hd = 128), one dequantised bf16 K tile, the candidate K and V columns,
+    the 16 rows' scores over the history tiles and the candidates, the row
+    statistics of 8 warps and the candidates' scales. f32 (CUDA cores): the
+    8 rows' queries and ``T + c`` scores and one int8 V tile."""
+    if dtype == torch.float32:
+        return (8 * hd + 8 * (T + c)) * 4 + hd * 68
+    stages = {32: 8, 64: 4, 128: 2}.get(hd, 4)
+    c_pad = _round_up(c, 16)
+    ring = stages * (hd * 144 + 128 * 4)
+    kb = hd * 136 * 2
+    cand = _round_up(2 * hd * (c_pad + 4), 16)
+    sp = 16 * (_round_up(T, 128) + c_pad + 8) * 4
+    return ring + kb + cand + sp + 2 * 8 * 16 * 4 + 2 * c_pad * 4 + 16  # + static: the row ranking
+
+
+def supports(H: int, hd: int, T: int, c: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """The kernel's limits: whole 8-row chunks of queries, a head dim of 32,
-    64 or 128, and the 8 rows' ``T + c`` scores in shared memory (T up to
-    about 7000). Any ``T`` below that, tile multiple or not."""
-    return c > 0 and c % 8 == 0 and hd in (32, 64, 128) and H > 0 and _smem_bytes(hd, T, c) <= _SMEM_LIMIT
+    64 or 128, and the rows' ``T + c`` scores in shared memory (bf16: 16 rows
+    per block, T up to about 2500 at hd = 64; f32: 8 rows, about 7000). Any
+    ``T`` below that, tile multiple or not."""
+    return (c > 0 and c % 8 == 0 and hd in (32, 64, 128) and H > 0
+            and _smem_bytes(hd, T, c, dtype) <= _SMEM_LIMIT)
 
 
 def scaled_operand(x, op_scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -110,7 +131,7 @@ def _check(qs, k8, ks, v8, vs, ck8, cks, cv8, cvs, pos) -> None:
             raise ValueError(f"history_attention: {name} must be {shape} {dtype}, got {tuple(x.shape)} {x.dtype}")
     if not all(x.is_contiguous() for x in args.values()):
         raise ValueError("history_attention: every tensor must be contiguous")
-    if not supports(H, hd, T, c) or B * H >= 2**31:
+    if not supports(H, hd, T, c, qs.dtype) or B * H >= 2**31:
         raise ValueError(f"history_attention: unsupported shape H={H} hd={hd} T={T} c={c}")
 
 

@@ -17,7 +17,10 @@ from streamkit_tpu_torch.ops import stream_attention as tsa
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "shape", [(1, 20, 1500, 64), (4, 20, 400, 64), (2, 3, 300, 64), (3, 1, 37, 64), (1, 2, 257, 128)]
+    "shape",
+    [(1, 20, 1500, 64), (4, 20, 400, 64), (2, 3, 300, 64), (3, 1, 37, 64), (1, 2, 257, 128),
+     # the 128-row tiles' edges: one past a tile, one short of three, T = 1500 at d = 128
+     (1, 2, 129, 64), (1, 2, 383, 64), (1, 2, 383, 128), (1, 1, 1500, 128)],
 )
 def test_flash_attention_matches_plain(dtype, shape):
     """Kernel vs the plain version run in f32 (f32 atol 1e-4; bf16 within
@@ -57,6 +60,16 @@ def test_flash_attention_rejects_what_it_cannot_take():
     q = torch.zeros(1, 2, 64, 256, device="cuda").transpose(-1, -2)
     with pytest.raises(ValueError, match="unit head_dim stride"):
         tattn.flash_attention(q, q, q, 0.5)
+    q = torch.zeros(1, 2, 256, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale > 0"):
+        tattn.flash_attention(q, q, q, 0.0)
+    # TMA: a base 2 bytes off a 16-byte boundary, a time stride of 264 bytes
+    off = torch.zeros(2 * 256 * 64 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(1, 2, 256, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn.flash_attention(off, off, off, 0.5)
+    odd = torch.zeros(1, 256, 132, device="cuda", dtype=torch.bfloat16)[..., :128].reshape(1, 256, 2, 64)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        tattn.flash_attention(*(odd.transpose(1, 2),) * 3, 0.5)
 
 
 @pytest.mark.cuda
@@ -115,6 +128,33 @@ def test_history_attention_matches_plain(dtype, B, H, c, hd, T):
         tol = 1e-4
     else:
         tol = 2 * (tsa.history_attention_reference(q32.to(dtype), **kw, pos=pos, op_scale=op) - ref).abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,H,c,hd,T",
+    [(4, 2, 8, 32, 256), (4, 2, 24, 128, 256), (4, 2, 32, 32, 384), (4, 2, 32, 128, 300), (4, 3, 16, 64, 1500)],
+)
+def test_history_attention_tile_edges(B, H, c, hd, T):
+    """bf16 kernel at its 128-column tiles' edges (histories of 127, 128, 129
+    columns and a full one), padded 16-row tiles (c = 8, 24) and T with no
+    16-byte rows (300: 4-byte copies): within twice the plain version's own
+    bf16 error of the plain version run in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    i8 = lambda *s: torch.randint(-127, 128, s, device="cuda", generator=g, dtype=torch.int8)  # noqa: E731
+    sc = lambda *s: torch.rand(s, device="cuda", generator=g) * 0.02 + 0.001  # noqa: E731
+    qs = (torch.randn(B, H, c, hd, device="cuda", generator=g) * 0.3).to(torch.bfloat16)
+    kw = dict(k8=i8(B, H, hd, T), ks=sc(B, H, T), v8=i8(B, H, hd, T), vs=sc(B, H, T),
+              ck8=i8(B, H, hd, c), cks=sc(B, H, c), cv8=i8(B, H, hd, c), cvs=sc(B, H, c))
+    pos = torch.tensor([127, 128, 129, T], dtype=torch.int32, device="cuda")
+    op = hd ** -0.25
+    out = tsa.history_attention(qs, **kw, pos=pos, op_scale=op)
+    torch.cuda.synchronize()
+    ref = tsa.history_attention_reference(qs.float(), **kw, pos=pos, op_scale=op)
+    tol = 2 * (tsa.history_attention_reference(qs, **kw, pos=pos, op_scale=op) - ref).abs().max().item()
     assert (out - ref).abs().max().item() <= tol
 
 

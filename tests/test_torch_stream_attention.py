@@ -64,6 +64,29 @@ def test_plain_version_matches_jax_reference_f32(pos):
     np.testing.assert_allclose(_torch(kw, pos), _jax(kw, pos, kernel=False), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("c", [8, 24, 32])
+def test_plain_version_matches_jax_kernel_at_tile_edges(c, hd):
+    """The bf16 kernel's tiles: 16-row query tiles (c = 8 and 24 pad the
+    last one), 128-column history tiles (histories of 0, 127, 128 and 129
+    columns) and both extreme head dims. The JAX kernel needs T % 128 = 0:
+    T = 256. Limit: 2e-3 of the term scale, as above."""
+    kw = _case(B=4, H=2, c=c, hd=hd, T=256, seed=c + hd)
+    pos = [0, 127, 128, 129]
+    np.testing.assert_allclose(_torch(kw, pos), _jax(kw, pos), atol=2e-3 * TERM, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("T", [136, 300])
+def test_plain_version_matches_jax_reference_off_tile(T, hd):
+    """T that is no multiple of 128 (the JAX kernel refuses it; the CUDA
+    kernel copies 16- or 4-byte pieces): the port equals the reference
+    formulation at f32, atol 1e-5, with histories on both sides of a tile."""
+    kw = _case(B=4, H=2, c=16, hd=hd, T=T, seed=T + hd)
+    pos = [T, 128, 129, 0]
+    np.testing.assert_allclose(_torch(kw, pos), _jax(kw, pos, kernel=False), atol=1e-5, rtol=0)
+
+
 def test_plain_version_matches_jax_reference_bf16():
     """bf16 queries: both round k8*op (op rounded to bf16 first) and p*scale
     to bf16 at the same places. Limit: 2e-3 of the term scale, the kernel
@@ -100,6 +123,20 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
     assert out.shape == (1, 2, 16, 64) and out.dtype == torch.float32
     with pytest.raises(ValueError, match="CUDA"):
         tsa._check(pos=torch.tensor([9], dtype=torch.int32), **kw)
+
+
+@pytest.mark.parametrize(
+    "hd, T, c, dtype, ok",
+    [
+        (64, 2560, 16, torch.bfloat16, True),  # the 16 rows' scores fill shared memory
+        (64, 2688, 16, torch.bfloat16, False),
+        (128, 2304, 16, torch.bfloat16, True),
+        (64, 2688, 16, torch.float32, True),  # the f32 kernel keeps 8 rows a block
+    ],
+)
+def test_supports_follows_each_kernels_shared_memory(hd, T, c, dtype, ok):
+    assert tsa.supports(20, hd, T, c, dtype) is ok
+    assert (tsa._smem_bytes(hd, T, c, dtype) <= 232_448) is ok
 
 
 def test_supports_states_the_kernels_own_limits():
