@@ -17,7 +17,11 @@
    with SDPA: kernel, SDPA, SDPA, kernel; the softmax's exponential count
    and their time at the SFU's 16 a clock per SM);
    K2 windowed cache write at the int8 encoder caches, their f32 scales and
-   the bf16 decoder folds (bit-exact, with a wrapping row and a lim = 0 row);
+   the bf16 decoder folds (bit-exact at random positions, with a wrapping
+   row, a lim = 0 row, lim > c, pos < 0 and pos >= T, and at the path's
+   positions; timed at the path's positions with the L2 warm and cold,
+   beside scatter_ under the same two conditions), and the fused step's two
+   grouped launches against the sum of their single-pair launches;
    K3 int8-history attention at [S, 20, 16, 64, 512] (the K1 limits, and a
    pos = 0 row that must not see the history).
 2. Context checks: a small f32 Whisper whose encoder takes K1 decodes the
@@ -42,7 +46,8 @@
 
 Kernel launch counts are set to 0 just before each path (3, 4) and read just
 after; each must equal what the code implies (K1: 32 per encode of 256 or
-more positions; K2: 10 per fused step call; K3: 32 per fused step call).
+more positions; K2: 2 per fused step call, one for the encoder caches and
+their scales and one for the two decoder folds; K3: 32 per fused step call).
 Kernel times are device times by the profiler (CUDA-event times of a run of
 calls beside them, which include the gaps where the device waits for the
 host).
@@ -253,61 +258,146 @@ def k1_phase():
     return entry
 
 
+def cold_ms(fn, flush: torch.Tensor, iters: int = 10) -> float:
+    """Device time of one ``fn()`` call into a cold L2: every call follows a
+    write of ``flush`` (more than the L2 holds), and only ``fn``'s kernels
+    count (the profiler's, by name: the flush's names are left out)."""
+    fill = lambda: flush.fill_(1.0)  # noqa: E731
+    fill_names = {e.name for e in device_kernels(fill, 1)}
+    for _ in range(2):
+        fill()
+        fn()
+    ks = [e for e in device_kernels(lambda: (fill(), fn()), iters) if e.name not in fill_names]
+    return sum(e.time_range.elapsed_us() for e in ks) / iters / 1e3
+
+
+FLUSH_BYTES = 128 << 20  # a write of it between launches leaves the 50 MB L2 cold
+
+
 def k2_phase(S: int):
     """Windowed cache write at the three classes the streaming table gives
-    it with S slots; bit-exact against the plain version."""
+    it with S slots. Bit-exact against the plain version at random
+    positions (a wrapping row, a lim = 0 row, a lim > c row, pos < 0 and
+    pos >= T) and at the path's positions (multiples of 8 for the encoder
+    caches and scales, any column for the folds). Timed at the path's
+    positions with every row writing its window, L2 warm (the same windows
+    rewritten) and cold (a 128 MB write before each launch), beside
+    scatter_ under the same two conditions. Then the fused step's two
+    grouped launches (the 8-pair encoder write, the fold pair), bit-exact
+    against the plain version looped over the pairs and timed against the
+    sum of their single-pair launches."""
     from streamkit_tpu_torch.ops import cache_write as cw
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    entry = None
-    # (label, G, F, T, c, dtype): encoder caches (4 kinds, 20 heads x 64),
-    # their scales, decoder folds (dec_t = 64 at a 32-token budget, c =
-    # max_steps = 3)
-    for label, G, F_, T, c, dtype in [("int8 enc cache", 32, 1280, 512, 16, torch.int8),
-                                      ("f32 scales", 32, 20, 512, 16, torch.float32),
-                                      ("bf16 fold", 32, 1280, 64, 3, torch.bfloat16)]:
-        def rand(*shape):
-            if dtype == torch.int8:
-                return torch.randint(-127, 128, shape, device="cuda", generator=g, dtype=torch.int8)
-            return torch.randn(shape, device="cuda", generator=g).to(dtype)
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
 
-        cache, upd = rand(G, S, F_, T), rand(G, S, F_, c)
-        # correctness: row 0 wraps, row 1 writes nothing, the rest random
+    def rand(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, device="cuda", generator=g, dtype=torch.int8)
+        return torch.randn(shape, device="cuda", generator=g).to(dtype)
+
+    def path_pos(T, chunked):
+        """The fused step's starts: encoder writes at multiples of CHUNK_POS
+        = 8, folds at any column."""
+        if chunked:
+            return torch.randint(0, T // 8, (S,), device="cuda", generator=g, dtype=torch.int32) * 8
+        return torch.randint(0, T, (S,), device="cuda", generator=g, dtype=torch.int32)
+
+    def exact(pairs, pos, lim, label):
+        """One launch over ``pairs`` against the plain version looped over
+        them; returns the largest |difference| (0 when bit-exact)."""
+        want = [cw.windowed_write_reference(cache.clone(), upd, pos, lim) for cache, upd in pairs]
+        got = [cache.clone() for cache, _ in pairs]
+        cw.windowed_write_many([(o, upd) for o, (_, upd) in zip(got, pairs)], pos, lim)
+        torch.cuda.synchronize()
+        for o, w in zip(got, want):
+            if not torch.equal(o.view(torch.uint8), w.view(torch.uint8)):
+                raise AssertionError(f"windowed_write {label}: differs from the plain version")
+        return max((o.double() - w.double()).abs().max().item() for o, w in zip(got, want))
+
+    def nbytes(pairs):
+        return sum(2 * u.numel() * u.element_size() for _, u in pairs) + 8 * S
+
+    entry = None
+    # (label, G, F, T, c, dtype, chunked): the encoder caches (4 kinds, 20
+    # heads x 64), their scales, the decoder folds (dec_t = 64 at a 32-token
+    # budget, c = max_steps = 3)
+    classes = [("int8 enc cache", 32, 1280, 512, 16, torch.int8, True),
+               ("f32 scales", 32, 20, 512, 16, torch.float32, True),
+               ("bf16 fold", 32, 1280, 64, 3, torch.bfloat16, False)]
+    for label, G, F_, T, c, dtype, chunked in classes:
+        cache, upd = rand((G, S, F_, T), dtype), rand((G, S, F_, c), dtype)
         pos = torch.randint(0, T, (S,), device="cuda", generator=g, dtype=torch.int32)
         lim = torch.randint(0, c + 1, (S,), device="cuda", generator=g, dtype=torch.int32)
-        pos[0], lim[0], lim[1] = T - 2, c, 0
-        want = cw.windowed_write_reference(cache.clone(), upd, pos, lim)
-        got = cw.windowed_write_groups(cache.clone(), upd, pos, lim)
-        torch.cuda.synchronize()
-        exact = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
-        if not exact:
-            raise AssertionError(f"windowed_write {label}: differs from the plain version")
-        # timing on the steady state: every row writes its whole window, so
-        # one scatter_ along the time axis computes the same function
+        pos[0], lim[0], lim[1] = T - 2, c, 0  # wraps; writes nothing
+        pos[2], lim[2], pos[3] = -5, c + 3, T + 3  # pos < 0 and lim > c; pos >= T
+        pos_p = path_pos(T, chunked)
         lim_full = torch.full((S,), c, device="cuda", dtype=torch.int32)
-        idx = ((pos.long()[:, None] + torch.arange(c, device="cuda")) % T)[None, :, None, :].expand(G, S, F_, c)
+        err = max(exact([(cache, upd)], pos, lim, label), exact([(cache, upd)], pos_p, lim, label),
+                  exact([(cache, upd)], pos_p, lim_full, label))
+        # every row writes its whole window: one scatter_ along the time
+        # axis computes the same function there
+        idx = ((pos_p.long()[:, None] + torch.arange(c, device="cuda")) % T)[None, :, None, :].expand(G, S, F_, c)
         scat = cache.clone().scatter_(-1, idx, upd)
-        kern = cw.windowed_write_groups(cache.clone(), upd, pos, lim_full)
+        kern = cw.windowed_write_groups(cache.clone(), upd, pos_p, lim_full)
         if not torch.equal(scat.view(torch.uint8), kern.view(torch.uint8)):
             raise AssertionError(f"windowed_write {label}: scatter_ yardstick computes another function")
-        nbytes = 2 * G * F_ * int(lim_full.sum()) * cache.element_size() + 8 * S
-        bound = nbytes / H100_BYTES * 1e3
+        moved = nbytes([(cache, upd)])
+        bound = moved / H100_BYTES * 1e3
         work = cache.clone()
-        kt = kernel_ms(lambda: cw.windowed_write_groups(work, upd, pos, lim_full))
-        pt = kernel_ms(lambda: cw.windowed_write_reference(work, upd, pos, lim_full), iters=10)
-        lt = kernel_ms(lambda: work.scatter_(-1, idx, upd))
-        ms, plain_ms, lib_ms = kt["ms"], pt["ms"], lt["ms"]
-        line = dict(case=label, shape=[G, S, F_, T], c=c, dtype=str(dtype).split(".")[-1], bit_exact=exact,
-                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bytes=nbytes,
-                    event_ms=kt["event_ms"], plain_event_ms=pt["event_ms"], library_event_ms=lt["event_ms"])
+        kern_fn = lambda: cw.windowed_write_groups(work, upd, pos_p, lim_full)  # noqa: E731
+        scat_fn = lambda: work.scatter_(-1, idx, upd)  # noqa: E731
+        kt, lt = kernel_ms(kern_fn), kernel_ms(scat_fn)
+        k_cold, l_cold = cold_ms(kern_fn, flush), cold_ms(scat_fn, flush)
+        pt = kernel_ms(lambda: cw.windowed_write_reference(work, upd, pos_p, lim_full), iters=10)
+        line = dict(case=label, shape=[G, S, F_, T], c=c, dtype=str(dtype).split(".")[-1],
+                    positions="multiples of 8" if chunked else "any column", pos=pos_p.tolist(), bit_exact=True,
+                    max_abs_err=err, ms=kt["ms"], ms_cold=k_cold, plain_ms=pt["ms"], library_ms=lt["ms"],
+                    library_ms_cold=l_cold, bound_ms=bound, bytes=moved, event_ms=kt["event_ms"],
+                    plain_event_ms=pt["event_ms"], library_event_ms=lt["event_ms"])
         log("# k2 " + json.dumps(line))
-        if entry is None:  # the int8 encoder caches: 4 of the 10 launches per call
+        if entry is None:  # the int8 encoder caches
             entry = {"name": "windowed_write", "route": "cuda",
                      "source": "streamkit_tpu_torch/csrc/cache_write.cu",
                      "replaces": "streamkit_tpu/ops/cache_write.py:209",
-                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": "bytes", "library_ms": lib_ms}
-        del cache, upd, want, got, scat, kern, work, idx
+                     "max_abs_err": err, "ms": kt["ms"], "ms_cold": k_cold, "plain_ms": pt["ms"],
+                     "bound_ms": bound, "bound_by": "bytes", "library_ms": lt["ms"], "library_ms_cold": l_cold,
+                     "case": label}
+        del cache, upd, scat, kern, work, idx
+
+    # the fused step's two launches: every encoder cache with its scales
+    # (multiples of 8), both decoder folds (any column)
+    for label, specs, chunked in [("encoder 8-pair write", [classes[0], classes[1]] * 4, True),
+                                  ("fold pair", [classes[2]] * 2, False)]:
+        pairs = [(rand((G, S, F_, T), dt), rand((G, S, F_, c), dt)) for _, G, F_, T, c, dt, _ in specs]
+        c = specs[0][4]
+        pos_p = path_pos(min(s[3] for s in specs), chunked)
+        lim_full = torch.full((S,), c, device="cuda", dtype=torch.int32)
+        lim = torch.randint(0, c + 1, (S,), device="cuda", generator=g, dtype=torch.int32)
+        err = max(exact(pairs, pos_p, lim, label), exact(pairs, pos_p, lim_full, label))
+        many = lambda: cw.windowed_write_many(pairs, pos_p, lim_full)  # noqa: E731
+        singles = lambda: [cw.windowed_write_groups(a, u, pos_p, lim_full) for a, u in pairs]  # noqa: E731
+        mt, st = kernel_ms(many), kernel_ms(singles)
+        host = {}
+        for name, fn in (("many", many), ("singles", singles)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            host[name] = (time.perf_counter() - t0) / 20 * 1e6  # wrapper(s) + launch(es), µs
+            torch.cuda.synchronize()
+        moved = nbytes(pairs)
+        line = dict(case=label, pairs=len(pairs), max_abs_err=err, ms=mt["ms"], ms_cold=cold_ms(many, flush),
+                    singles_ms=st["ms"], singles_ms_cold=cold_ms(singles, flush), bound_ms=moved / H100_BYTES * 1e3,
+                    bytes=moved, kernels_per_call=mt.get("kernels_per_call"),
+                    singles_kernels_per_call=st.get("kernels_per_call"), host_us_per_call=host["many"],
+                    singles_host_us_per_call=host["singles"], event_ms=mt["event_ms"],
+                    singles_event_ms=st["event_ms"])
+        log("# k2 " + json.dumps(line))
+        entry[("grouped" if chunked else "fold_pair") + "_ms"] = mt["ms"]
+        entry[("grouped" if chunked else "fold_pair") + "_ms_cold"] = line["ms_cold"]
+        del pairs
+    del flush
     torch.cuda.empty_cache()
     return entry
 
@@ -622,7 +712,7 @@ def stream_context_phase():
             ok = report[w]["max_abs_err"] <= 1e-4
         if not ok:
             raise AssertionError(f"stream context: {w} differs between cuda and cpu: {report}")
-    want = {"flash_attention": 0, "windowed_write": 10 * n_steps, "history_attention": cfg.n_audio_layer * n_steps}
+    want = {"flash_attention": 0, "windowed_write": 2 * n_steps, "history_attention": cfg.n_audio_layer * n_steps}
     log("# stream context " + json.dumps(report))
     if report["vad_max_abs_err"] > 1e-4 or counts != want or int(tg._n_tok.min()) <= 4:
         raise AssertionError(f"stream context: launches {counts} (want {want}), {report}")
@@ -711,7 +801,7 @@ def live_partials_path(cfg_layers: int = 32):
             "fused_call_ms_mean": 1e3 * float(np.mean(walls)), "fused_call_ms_median": 1e3 * float(np.median(walls)),
             "fused_call_ms_max": 1e3 * float(np.max(walls)), "finals_stream": out["finals_stream"],
             "finals_fallback": out["finals_fallback"], "batcher": out["stats"]}))
-    want = {"flash_attention": cfg_layers * flash_encodes, "windowed_write": 10 * calls,
+    want = {"flash_attention": cfg_layers * flash_encodes, "windowed_write": 2 * calls,
             "history_attention": cfg_layers * calls}
     log(f"# live-partials path: launches {counts}, expected {want}; wall {t_path:.1f} s")
     if counts != want or calls == 0:
@@ -769,6 +859,7 @@ def profile_fused_step(S: int = 8, warm: int = 4, steps: int = 3):
     report = {"wall_ms_per_call": wall_ms, "device_ms_per_call": busy,
               "device_idle_share": 1.0 - busy / wall_ms, "kernels_per_call": len(ks) / steps,
               "windowed_write_ms": share("windowed_write"), "history_attention_ms": share("history_attention"),
+              "windowed_write_kernels_per_call": sum(v[0] for k, v in by_name.items() if "windowed_write" in k) / steps,
               "top": [[k[:80], v[0] / steps, v[1] / steps] for k, v in top]}
     log("# fused-step profile " + json.dumps(report))
     del params, tbl

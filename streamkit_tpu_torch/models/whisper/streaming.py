@@ -33,7 +33,8 @@ and ``SK_ATTN_KERNEL`` (each ``pallas_call`` is an XLA fusion barrier). The
 port has no fusion to protect and drops both knobs: in identity mode (batch
 row b is table slot b, the serving engine's packing) every cache append and
 every decoder fold goes through the windowed-write kernel
-(:mod:`...ops.cache_write`), and the int8 tables' encoder attention through
+(:mod:`...ops.cache_write`; one launch for all of a call's encoder-cache
+appends, one for its two folds), and the int8 tables' encoder attention through
 the history-attention kernel (:mod:`...ops.stream_attention`). Both wrappers
 launch their CUDA kernel on CUDA tensors and take their plain version on CPU
 tensors. Float tables and the general (gathered-row) mode keep the
@@ -191,45 +192,51 @@ def _scatter_rows(arr, upd, ids, pos, lim) -> None:
     a4[:, ids.long()[b_idx], :, cols[b_idx, i_idx]] = upd.reshape(L, upd.shape[1], -1, c)[:, b_idx, :, i_idx]
 
 
-def _write_chunks(cache, cands, ids, pos, commit, identity: bool) -> None:
-    """Append every layer's candidate columns to a cache, in place.
+def _write_chunks(writes, ids, pos, commit, identity: bool) -> None:
+    """Append every layer's candidate columns to the caches, in place.
 
-    ``cands``: per layer, ``(q8 [B,H,hd,c], scale [B,H,c])`` (int8 cache) or
-    ``[B,H,hd,c]``. ``commit [B]``: chunks to write per row (``None`` = all).
-    Identity mode launches the windowed-write kernel once for the data and
-    once for the scales (the plain version on the CPU); the general mode
+    ``writes``: ``(cache, cands)`` per cache; ``cands`` per layer, ``(q8
+    [B,H,hd,c], scale [B,H,c])`` (int8 cache) or ``[B,H,hd,c]``, one ``c``
+    for all. ``commit [B]``: chunks to write per row (``None`` = all).
+    Identity mode writes every cache's data and scales with one
+    windowed-write launch (the plain version on the CPU); the general mode
     scatters the committed columns into the gathered rows."""
-    quant = isinstance(cache, tuple)
-    arr = cache[0] if quant else cache
-    L, S, H, hd, T = arr.shape
-    cq = torch.stack([c[0] if quant else c for c in cands])  # [L,B,H,hd,c]
-    b, c = cq.shape[1], cq.shape[-1]
+    first = writes[0][1][0]
+    b, c = pos.shape[0], (first[0] if isinstance(first, tuple) else first).shape[-1]
     lim = (
-        torch.full((b,), c, dtype=torch.int32, device=arr.device)
+        torch.full((b,), c, dtype=torch.int32, device=pos.device)
         if commit is None
         else torch.clamp(CHUNK_POS * commit, max=c).to(torch.int32)
     )
-    if identity:
-        cache_write.windowed_write_groups(arr.view(L, S, H * hd, T), cq.view(L, S, H * hd, c), pos, lim)
+    pairs = []
+    for cache, cands in writes:
+        quant = isinstance(cache, tuple)
+        arr = cache[0] if quant else cache
+        L, S, H, hd, T = arr.shape
+        cq = torch.stack([x[0] if quant else x for x in cands])  # [L,B,H,hd,c]
+        sq = torch.stack([x[1] for x in cands]) if quant else None  # [L,B,H,c]
+        if identity:
+            pairs.append((arr.view(L, S, H * hd, T), cq.view(L, S, H * hd, c)))
+            if quant:
+                pairs.append((cache[1], sq))
+            continue
+        _scatter_rows(arr, cq, ids, pos, lim)
         if quant:
-            supd = torch.stack([c_[1] for c_ in cands]).contiguous()  # [L,B,H,c]
-            cache_write.windowed_write_groups(cache[1], supd, pos, lim)
-        return
-    _scatter_rows(arr, cq, ids, pos, lim)
-    if quant:
-        _scatter_rows(cache[1], torch.stack([c_[1] for c_ in cands]), ids, pos, lim)
+            _scatter_rows(cache[1], sq, ids, pos, lim)
+    if pairs:
+        cache_write.windowed_write_many(pairs, pos, lim)
 
 
-def _fold_cols(cache5, delta5, pos, count) -> None:
-    """Fold per-step delta columns into a layer-major cache ``[L, B, ..,
-    T]`` in place: ``cache[:, b, .., pos[b]+i] = delta[:, b, .., i]`` for
-    ``i < count[b]``. One windowed-write launch (its plain version on the
-    CPU)."""
-    L, B, T = cache5.shape[0], cache5.shape[1], cache5.shape[-1]
-    c = delta5.shape[-1]
-    cache_write.windowed_write_groups(
-        cache5.view(L, B, -1, T), delta5.reshape(L, B, -1, c).contiguous(), pos, count
-    )
+def _fold_cols(folds, pos, count) -> None:
+    """Fold per-step delta columns into layer-major caches ``[L, B, .., T]``
+    in place: ``cache[:, b, .., pos[b]+i] = delta[:, b, .., i]`` for ``i <
+    count[b]``, for every ``(cache, delta)`` of ``folds``. One
+    windowed-write launch for all (its plain version on the CPU)."""
+    pairs = []
+    for cache5, delta5 in folds:
+        L, B, T = cache5.shape[0], cache5.shape[1], cache5.shape[-1]
+        pairs.append((cache5.view(L, B, -1, T), delta5.reshape(L, B, -1, delta5.shape[-1]).contiguous()))
+    cache_write.windowed_write_many(pairs, pos, count)
 
 
 # ---------------------------------------------------------------------------
@@ -322,8 +329,8 @@ def _encode_core(
         cand_xk.append(_quant_like(xkr, kx.transpose(-1, -2)))
         cand_xv.append(_quant_like(xvr, vx.transpose(-1, -2)))
 
-    for cache, cands in ((ek, cand_ks), (ev, cand_vs), (xkr, cand_xk), (xvr, cand_xv)):
-        _write_chunks(cache, cands, stream_ids, pos_rows, commit, identity)
+    _write_chunks(((ek, cand_ks), (ev, cand_vs), (xkr, cand_xk), (xvr, cand_xv)), stream_ids, pos_rows, commit,
+                  identity)
     adv = n_pos if commit is None else CHUNK_POS * commit
     return pos_rows + adv
 
@@ -349,7 +356,7 @@ def _decode_core(
     and, once caught up, appends the argmax unless it is ``<|eot|>`` (held
     back). The self K/V history is loop-invariant: each step's columns go to
     a small delta buffer, folded into the table once after the loop at each
-    row's start column (one windowed-write launch per kind). Returns
+    row's start column (one windowed-write launch for K and V). Returns
     ``(tok, fed, n_tok)``; ``dk``/``dv`` are written in place."""
     d = params["dec"]
     dtype = params["enc"]["pos"].dtype
@@ -441,8 +448,7 @@ def _decode_core(
 
     # fold the delta columns once, at each row's start column; fold_n counts
     # the row's active steps (a row that never stepped folds nothing)
-    _fold_cols(dkl, kd, feed0, fold_n)
-    _fold_cols(dvl, vd, feed0, fold_n)
+    _fold_cols(((dkl, kd), (dvl, vd)), feed0, fold_n)
     if not identity:
         dk[:, hist_ids] = dkl
         dv[:, hist_ids] = dvl

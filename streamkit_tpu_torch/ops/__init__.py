@@ -3,7 +3,7 @@
 the streaming caches' windowed write and int8-history attention."""
 
 from .attention import attention_reference, flash_attention
-from .cache_write import windowed_write, windowed_write_groups
+from .cache_write import windowed_write, windowed_write_groups, windowed_write_many
 from .stream_attention import history_attention
 from .dsp import f32_to_s16le, s16le_to_f32
 from .mel import log_mel_spectrogram, mel_filterbank

@@ -103,6 +103,109 @@ def test_windowed_write_matches_plain(G, S, F, T, c, dtype):
     assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
 
 
+def _k2_rand(shape, dtype, g):
+    if dtype in (torch.int8, torch.int16):
+        return torch.randint(-127, 128, shape, device="cuda", generator=g, dtype=dtype)
+    return torch.randn(shape, device="cuda", generator=g).to(dtype)
+
+
+def _k2_offset(shape, dtype, g, off):
+    """A contiguous [shape] tensor whose base lies ``off`` elements past an
+    allocation's (so its byte alignment is the element size's)."""
+    n = 1
+    for d in shape:
+        n *= d
+    return _k2_rand((n + off,), dtype, g)[off:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "bases-one-element-off"])
+@pytest.mark.parametrize("full", [True, False], ids=["lim-c", "lim-random"])
+@pytest.mark.parametrize(
+    "G,F,T,c,dtype",
+    [
+        (2, 64, 512, 16, torch.int8),  # encoder caches
+        (2, 20, 512, 16, torch.float32),  # their scales
+        (2, 64, 64, 3, torch.bfloat16),  # decoder folds
+        (2, 5, 37, 11, torch.float64),  # odd sizes
+        (2, 5, 37, 37, torch.float64),  # window = ring
+    ],
+)
+def test_windowed_write_start_sweep(G, F, T, c, dtype, full, off):
+    """Bit-exact against the plain version for every start column 0..17 and
+    T-9..T-1, pos < 0 and pos >= T (one slot each), so every access width
+    the runtime alignment picks, the wrap included, runs; with full windows
+    and with random lim in 0..c+2, and with cache and upd bases one element
+    off their allocation's alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    starts = list(range(18)) + list(range(T - 9, T)) + [-5, T + 3]
+    S = len(starts)
+    cache, upd = _k2_offset((G, S, F, T), dtype, g, off), _k2_offset((G, S, F, c), dtype, g, off)
+    pos = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    lim = (torch.full((S,), c, dtype=torch.int32, device="cuda") if full
+           else torch.randint(0, c + 3, (S,), device="cuda", generator=g, dtype=torch.int32))
+    want = tcw.windowed_write_reference(cache.clone(), upd, pos, lim)
+    before = tcw.windowed_write_groups.launches
+    tcw.windowed_write_groups(cache, upd, pos, lim)
+    torch.cuda.synchronize()
+    assert tcw.windowed_write_groups.launches == before + 1
+    assert torch.equal(cache.view(torch.uint8), want.view(torch.uint8))
+
+
+def _k2_pairs(specs, S, g):
+    return [(_k2_rand((G, S, F, T), dt, g), _k2_rand((G, S, F, c), dt, g)) for G, F, T, c, dt in specs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "specs,chunked",
+    [
+        # the fused step's encoder write: 4 int8 caches, each with its f32 scales
+        ([(32, 1280, 512, 16, torch.int8), (32, 20, 512, 16, torch.float32)] * 4, True),
+        # its decoder folds (bf16, dec_t 64, 3 steps at any start)
+        ([(32, 1280, 64, 3, torch.bfloat16)] * 2, False),
+        # mixed element sizes and shapes, an empty pair (G = 0) among them
+        ([(2, 16, 128, 8, torch.int8), (0, 8, 64, 8, torch.float32), (3, 33, 40, 7, torch.bfloat16),
+          (1, 3, 24, 24, torch.float64), (2, 9, 100, 5, torch.int16)], False),
+    ],
+    ids=["encoder-8-pairs", "fold-pair", "mixed"],
+)
+def test_windowed_write_many_matches_plain(specs, chunked):
+    """One launch over every pair, bit-exact against the plain version
+    looped over the pairs; a wrapping row, a lim = 0 row, a lim > c row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    S = 3
+    pairs = _k2_pairs(specs, S, g)
+    T_min, c_max = min(s[2] for s in specs), max(s[3] for s in specs)
+    pos = torch.tensor([T_min - (8 if chunked else 2), 8, 16 if chunked else 13], dtype=torch.int32, device="cuda")
+    lim = torch.tensor([c_max, 0, c_max + 4], dtype=torch.int32, device="cuda")
+    want = [tcw.windowed_write_reference(cache.clone(), upd, pos, lim) for cache, upd in pairs]
+    before = tcw.windowed_write_groups.launches
+    tcw.windowed_write_many(pairs, pos, lim)
+    torch.cuda.synchronize()
+    assert tcw.windowed_write_groups.launches == before + 1
+    for (cache, _), w in zip(pairs, want):
+        assert torch.equal(cache.view(torch.uint8), w.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_windowed_write_many_refuses_cpu_cuda_mixes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pos, lim = torch.zeros(3, dtype=torch.int32), torch.full((3,), 8, dtype=torch.int32)
+    on_card = (torch.zeros(2, 3, 4, 16, device="cuda"), torch.zeros(2, 3, 4, 8, device="cuda"))
+    on_host = (torch.zeros(2, 3, 4, 16), torch.zeros(2, 3, 4, 8))
+    before = tcw.windowed_write_groups.launches
+    for pairs in ([on_card, on_host], [on_host, on_card], [(on_card[0], on_host[1])]):
+        with pytest.raises(ValueError, match="one device"):
+            tcw.windowed_write_many(pairs, pos, lim)
+    assert tcw.windowed_write_groups.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,c,hd,T", [(4, 20, 16, 64, 512), (2, 3, 8, 32, 200), (1, 2, 24, 128, 77)])
@@ -160,8 +263,9 @@ def test_history_attention_tile_edges(B, H, c, hd, T):
 
 @pytest.mark.cuda
 def test_fused_stream_step_on_cuda_matches_cpu():
-    """Fused identity-mode int8 steps on the card (K2 ten times and K3 once
-    per encoder layer per call) against the same steps on the CPU: equal
+    """Fused identity-mode int8 steps on the card (K2 twice per call: all
+    encoder-cache appends, then both decoder folds; K3 once per encoder
+    layer per call) against the same steps on the CPU: equal
     tokens and positions, int8 codes off by at most one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -200,7 +304,7 @@ def test_fused_stream_step_on_cuda_matches_cpu():
     torch.cuda.synchronize()
     launched = (tcw.windowed_write_groups.launches - before[0], tsa.history_attention.launches - before[1])
     tc = run("cpu", cpu)
-    assert launched == (30, 6)
+    assert launched == (6, 6)
     for name in ("_tokens", "_n_tok", "_enc_pos"):
         assert torch.equal(getattr(tg, name).cpu(), getattr(tc, name)), name
     codes = np.abs(tg.cache_view("enc_k")[0].astype(int) - tc.cache_view("enc_k")[0].astype(int))
