@@ -28,26 +28,39 @@
    same tokens on ``cuda`` as on ``cpu``; a small f32 streaming table (int8
    caches, identity packing, so K2 and K3 launch) runs fused block steps on
    ``cuda`` and ``cpu`` to equal tokens and caches within tolerance.
-3. Segment-final path at full width: Whisper large-v3 (bf16, random weights
-   from a seed) behind a ``SessionAudioRing`` and a ``DeviceBatcher`` with
-   the ``vad_ring`` / ``whisper_detect`` / ``whisper_ring`` kinds registered
-   as the whisper node registers them: four sessions stream 10–19 s of
-   synthetic audio, detect their language and decode their segment from the
-   ring; one session's audio also goes through ``transcribe_window``.
-4. Live-partials path at full width: an ``SttServingEngine`` (large-v3
+3. Node context check: a small f32 Whisper (1500 encoder positions, head
+   dim 64, so K1 launches) behind the port's ``WhisperNode`` in a oneshot
+   pipeline gives the same Transcription lines on ``cuda`` as on ``cpu``,
+   without a batcher and with one (``language: auto``).
+4. Segment-final path at full width, the way users reach it: oneshot
+   pipelines (``http_input → containers::wav::demuxer →
+   plugin::native::whisper → core::json_serialize → http_output``) through
+   the port's registry, one ``DeviceBatcher`` and one ``ResourceManager``
+   (the model loads once). Whisper large-v3, bf16, random weights from seed
+   0, ``language: auto``. A short silent request loads the model and lets
+   the node register its kinds; ``warmup_batched_kinds`` warms them; then
+   four concurrent requests carry WAV bodies of 10–19 s of synthetic audio
+   (the node's ``whisper_detect`` and ``whisper_ring`` kinds), and a fifth
+   runs without a batcher (the node's ``transcribe_window`` route).
+5. Live captions at full width: two concurrent oneshot requests in the shape
+   of ``samples/pipelines/system/live_captions.yml`` (WAV in, JSON out;
+   partials from the fused streaming step, finals from the stream, 8-frame
+   VAD blocks), 8 s of synthetic speech and 1 s of silence each.
+6. Live-partials path at full width: an ``SttServingEngine`` (large-v3
    bf16) in stream mode serves 8 sessions of 8 s synthetic speech and 1 s of
    silence pushed faster than real time, then a 2-session engine in exact
    mode. Every session must see speech_start, partials and finals with
    monotone ``seq``.
-
-5. Profiles a few fused steps at the live-partials path's shape (large-v3,
+7. Profiles a few fused steps at the live-partials path's shape (large-v3,
    8 slots) with ``torch.profiler``: host wall per call against the
    device's kernel time, by kernel.
 
-Kernel launch counts are set to 0 just before each path (3, 4) and read just
-after; each must equal what the code implies (K1: 32 per encode of 256 or
-more positions; K2: 2 per fused step call, one for the encoder caches and
-their scales and one for the two decoder folds; K3: 32 per fused step call).
+Kernel launch counts are set to 0 just before each path (4, 5, 6) and read
+just after; each must equal what the code implies (K1: 32 per encode of 256
+or more positions; K2: 2 per fused step call, one for the encoder caches
+and their scales and one for the two decoder folds; K3: 32 per fused step
+call). Every batcher kind these paths dispatch is registered by the port's
+``WhisperNode`` or ``SttServingEngine``, never by this script.
 Kernel times are device times by the profiler (CUDA-event times of a run of
 calls beside them, which include the gaps where the device waits for the
 host).
@@ -60,6 +73,7 @@ result, without a CUDA device or without the package beside it.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import math
 import os
@@ -71,7 +85,6 @@ import numpy as np
 import torch
 
 SR = 16_000
-VAD_BLOCK_FRAMES = 4  # whisper node default (vad_block_frames)
 STT_GATHER_MS = 1000.0  # the whisper node's SK_STT_GATHER_MS knob: straggler bound
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES = 3.35e12  # HBM3 bytes/s
@@ -503,7 +516,7 @@ def context_phase():
 
 
 # ---------------------------------------------------------------------------
-# 3. main path: large-v3 behind the batcher
+# 3. main path: oneshot pipelines through the port's registry and WhisperNode
 # ---------------------------------------------------------------------------
 def session_audio(rng, secs: float) -> np.ndarray:
     """Syllable-rate bursts of a few harmonics over low noise."""
@@ -515,135 +528,288 @@ def session_audio(rng, secs: float) -> np.ndarray:
     return (0.2 * voiced * env + 0.01 * rng.randn(n)).astype(np.float32)
 
 
-async def serve(params, cfg, ring, batcher, sessions):
-    from streamkit_tpu_torch.models.whisper import detect_language_ring, transcribe_ring
-    from streamkit_tpu_torch.ops.vad import VAD_FRAME
+def wav_body(audio: np.ndarray) -> bytes:
+    """16 kHz mono s16 WAV bytes: the body of a ``POST /api/v1/process``."""
+    import io
+    import wave
 
-    # kinds and knobs as nodes/ml/whisper_node.py:326-397 registers them
-    max_tokens, window_buckets = 224, [30.0]
-    model_tag = f"large-v3:{max_tokens}:s11"
-    batch_kind = f"whisper_ring:{model_tag}"
-    vad_kind = f"vad_ring:{VAD_BLOCK_FRAMES}"
-
-    def batched_vad(slot_ids, starts, frames_b):
-        return ring.vad_append(slot_ids, starts, frames_b)
-
-    batcher.register(vad_kind, batched_vad, max_batch=128, pad_to=None, gather_ms=0.0)
-
-    def make_ring_stt(window: int, tok_budget: int):
-        def batched_stt(slot_ids, starts, lengths, lang_rows):
-            return transcribe_ring(params, cfg, ring.ring_ref(), slot_ids, starts, lengths,
-                                   window_samples=window, language_index=lang_rows,
-                                   max_tokens=tok_budget, with_logprobs=True)
-        return batched_stt
-
-    detect_window = int(min(8.0, window_buckets[0]) * SR)
-    detect_kind = f"whisper_detect:{model_tag}:{detect_window}"
-
-    def batched_detect(slot_ids, starts, lengths):
-        return (detect_language_ring(params, cfg, ring.ring_ref(), slot_ids, starts, lengths,
-                                     window_samples=detect_window),)
-
-    batcher.register(detect_kind, batched_detect)
-    for b in window_buckets:
-        tok_budget = min(max_tokens, max(12, int(b * 4) + 8))
-        batcher.register(f"{batch_kind}:{int(b * SR)}", make_ring_stt(int(b * SR), tok_budget),
-                         pad_to=None, gather_ms=STT_GATHER_MS)
-    stt_kind = f"{batch_kind}:{int(window_buckets[0] * SR)}"
-    batcher.set_expected(stt_kind, len(sessions))
-    batcher.start()
-    # segments close together: every session submits its finals once all
-    # have streamed their audio, so the ring decodes batch
-    streamed = 0
-    all_streamed = asyncio.Event()
-
-    async def session(audio):
-        nonlocal streamed
-        slot = ring.alloc()
-        written = 0
-        block = VAD_BLOCK_FRAMES * VAD_FRAME
-        probs = []
-        t0 = time.monotonic()
-        for i in range(len(audio) // block):
-            frames = audio[i * block : (i + 1) * block].reshape(VAD_BLOCK_FRAMES, VAD_FRAME)
-            probs.append(await batcher.submit(vad_kind, np.int32(slot), np.int32(written % ring.ring_samples),
-                                              frames))
-            written += block
-        t_vad = time.monotonic() - t0
-        streamed += 1
-        if streamed == len(sessions):
-            all_streamed.set()
-        await all_streamed.wait()
-        t0 = time.monotonic()
-        lang = await batcher.submit(detect_kind, np.int32(slot), np.int32(0), np.int32(min(written, detect_window)))
-        t_det = time.monotonic() - t0
-        t0 = time.monotonic()
-        tokens, length, lp = await batcher.submit(stt_kind, np.int32(slot), np.int32(0), np.int32(written),
-                                                  np.int32(lang))
-        t_stt = time.monotonic() - t0
-        ring.free(slot)
-        return dict(slot=slot, samples=written, vad_probs=np.concatenate(probs), lang=int(lang),
-                    tokens=np.asarray(tokens), n_tokens=int(length), lp_sum=float(lp),
-                    vad_ms=t_vad * 1e3, detect_ms=t_det * 1e3, stt_ms=t_stt * 1e3)
-
-    out = await asyncio.gather(*(session(a) for a in sessions))
-    batcher.stop()
-    return out
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
 
 
-def segment_final_path():
-    """Path 3; returns the launch counts of its run."""
-    from streamkit_tpu_torch.engine import DeviceBatcher, SessionAudioRing
-    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, init_params, transcribe_window
+def stt_pipeline(whisper_params: dict):
+    """``http_input → wav demuxer → whisper → json_serialize → http_output``,
+    compiled as the server compiles a request's pipeline."""
+    from streamkit_tpu_torch.api import compile_pipeline_dict
 
-    cfg = WHISPER_CONFIGS["large-v3"]
+    return compile_pipeline_dict({"name": "speech-to-text", "mode": "oneshot", "steps": [
+        {"kind": "streamkit::http_input"},
+        {"kind": "containers::wav::demuxer"},
+        {"kind": "plugin::native::whisper", "params": whisper_params},
+        {"kind": "core::json_serialize", "params": {"newline_delimited": True}},
+        {"kind": "streamkit::http_output", "params": {"content_type": "application/json"}},
+    ]})
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """Set the node's ``SK_*`` environment knobs for one path, then restore
+    them (later paths size their own stream tables)."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def node_registry(device: str):
+    from streamkit_tpu_torch.core import NodeRegistry
+    from streamkit_tpu_torch.nodes import register_nodes
+
+    reg = NodeRegistry()
+    register_nodes(reg, device=device)
+    return reg
+
+
+async def oneshot(registry, pipeline, body: bytes, resources, batcher):
+    """One request → (Transcription lines, wall seconds)."""
+    from streamkit_tpu_torch.engine import run_oneshot_pipeline
+
+    async def stream():
+        for i in range(0, len(body), 1 << 16):
+            yield body[i : i + (1 << 16)]
+
     t0 = time.monotonic()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    log(f"# large-v3 bf16: {n_params} parameters on the card in {time.monotonic() - t0:.1f} s")
+    result = await run_oneshot_pipeline(registry, pipeline, input_stream=stream(), resources=resources,
+                                        batcher=batcher)
+    out = await result.read_all()
+    wall = time.monotonic() - t0
+    if result.content_type != "application/json":
+        raise AssertionError(f"response content type {result.content_type}")
+    return transcripts(out), wall
+
+
+def transcripts(body: bytes) -> list:
+    """The response's Transcription lines. The JSON carries no ``is_final``;
+    the node's order gives it: a segment's final is the last line with its
+    start, every earlier one is a partial."""
+    rows = []
+    for line in body.decode().splitlines():
+        if not line.strip():
+            continue
+        tr = json.loads(line)["Transcription"]
+        (seg,) = tr["segments"]
+        rows.append({"text": tr["text"], "language": tr["language"], "start_ms": seg["start_time_ms"],
+                     "end_ms": seg["end_time_ms"], "confidence": seg["confidence"]})
+    last = {r["start_ms"]: i for i, r in enumerate(rows)}
+    for i, r in enumerate(rows):
+        r["is_final"] = last[r["start_ms"]] == i
+    return rows
+
+
+def check_transcripts(rows: list, secs: float, label: str, partials: bool = False) -> None:
+    from streamkit_tpu_torch.models.whisper import WHISPER_LANGUAGES
+
+    finals = [r for r in rows if r["is_final"]]
+    ok = bool(finals) and (not partials or len(finals) < len(rows))
+    for r in rows:
+        conf = r["confidence"]
+        ok = ok and r["text"] != "" and r["language"] in WHISPER_LANGUAGES
+        ok = ok and 0 <= r["start_ms"] < r["end_ms"] <= secs * 1000 + 64
+        ok = ok and (conf is None or (math.isfinite(conf) and 0.0 < conf <= 1.0))
+    if not ok:
+        raise AssertionError(f"{label}: bad transcripts {rows}")
+
+
+def show(rows: list, label: str) -> None:
+    for r in rows:
+        log(f"# {label} " + json.dumps(dict(r, text=r["text"][:96] + ("…" if len(r["text"]) > 96 else ""))))
+
+
+def flash_per_encode() -> int:
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS
+
+    return WHISPER_CONFIGS["large-v3"].n_audio_layer
+
+
+def kind_calls(stats: dict, prefix: str) -> int:
+    return sum(v["calls"] for k, v in stats["kinds"].items() if k.startswith(prefix))
+
+
+def segment_final_path(resources):
+    """Path 3: four concurrent oneshot requests through one ``DeviceBatcher``
+    (the node's ``vad_ring`` / ``whisper_detect`` / ``whisper_ring`` kinds),
+    then a fifth without a batcher (``transcribe_window``). Returns the
+    launch counts of the batched run and of the whole path."""
+    from streamkit_tpu_torch.engine import DeviceBatcher
+    from streamkit_tpu_torch.nodes.ml.whisper_node import warmup_batched_kinds
+
+    registry = node_registry("cuda")
+    pipeline = stt_pipeline({"model_size": "large-v3", "dtype": "bfloat16", "language": "auto"})
     rng = np.random.RandomState(0)
-    sessions = [session_audio(rng, secs) for secs in (10.0, 13.0, 16.0, 19.0)]
-    ring = SessionAudioRing(max_slots=16, device="cuda")
-    batcher = DeviceBatcher(device="cuda")
+    secs = (10.0, 13.0, 16.0, 19.0)
+    sessions = [session_audio(rng, s) for s in secs]
+    bodies = [wav_body(a) for a in sessions]
 
-    reset_counts()  # counts from here to the end of this path
-    t0 = time.monotonic()
-    results = asyncio.run(serve(params, cfg, ring, batcher, sessions))
-    t_serve = time.monotonic() - t0
-    t0 = time.monotonic()
-    tok_w, len_w = transcribe_window(params, cfg, sessions[0])
-    t_window = time.monotonic() - t0
+    async def run():
+        batcher = DeviceBatcher(device="cuda")
+        # a short silent request: the node loads the model into the shared
+        # cache and registers its kinds; then every kind is warmed
+        t0 = time.monotonic()
+        await oneshot(registry, pipeline, wav_body(np.zeros(SR, np.float32)), resources, batcher)
+        log(f"# warm request (model load, kind registration) {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        warmed = await warmup_batched_kinds(batcher, sweep_to=0)
+        log(f"# warmed {warmed} in {time.monotonic() - t0:.1f} s")
+        for name in batcher.registered_kinds():
+            if name.startswith(("whisper_ring:", "whisper_detect:")):
+                batcher.set_expected(name, len(bodies))  # the four finals batch
+        before = batcher.stats()
+        reset_counts()  # counts from here to the end of this path
+        t0 = time.monotonic()
+        out = await asyncio.gather(*(oneshot(registry, pipeline, b, resources, batcher) for b in bodies))
+        t_batched = time.monotonic() - t0
+        counts = read_counts()
+        stats = batcher.stats()
+        batcher.stop()
+        t0 = time.monotonic()
+        rows_w, wall_w = await oneshot(registry, pipeline, bodies[0], resources, None)
+        t_window = time.monotonic() - t0
+        return before, stats, out, counts, rows_w, wall_w, t_batched, t_window
+
+    with knobs(SK_STT_GATHER_MS=STT_GATHER_MS):
+        before, stats, out, counts_b, rows_w, wall_w, t_batched, t_window = asyncio.run(run())
     counts = read_counts()
-    launches = counts["flash_attention"]
-
-    stats = batcher.stats()
-    for r in results:
-        log("# session " + json.dumps({k: r[k] for k in ("slot", "samples", "lang", "n_tokens", "lp_sum",
-                                                          "vad_ms", "detect_ms", "stt_ms")}))
-        if not (r["vad_probs"].shape == (r["samples"] // 512,) and np.all(np.isfinite(r["vad_probs"]))
-                and r["vad_probs"].min() >= 0.0 and r["vad_probs"].max() <= 1.0):
-            raise AssertionError(f"bad VAD probabilities for slot {r['slot']}")
-        cap = r["samples"] // 4000 + 4  # the ring decode's per-row budget (+1, as the reference)
-        if not (r["tokens"].shape == (128,) and 1 <= r["n_tokens"] <= cap + 1 and math.isfinite(r["lp_sum"])
-                and 0 <= r["lang"] < cfg.n_languages and r["tokens"].max() < cfg.n_vocab):
-            raise AssertionError(f"bad decode for slot {r['slot']}: {r}")
-    log("# transcribe_window " + json.dumps({"n_tokens": int(len_w[0]), "wall_ms": t_window * 1e3,
-                                             "shape": list(tok_w.shape)}))
-    if not (tok_w.shape == (1, 224) and 1 <= int(len_w[0]) <= 224):
-        raise AssertionError(f"bad transcribe_window output {tok_w.shape} {len_w}")
+    for i, ((rows, wall), s) in enumerate(zip(out, secs)):
+        log("# request " + json.dumps({"audio_s": s, "wall_s": wall, "lines": len(rows), "batcher": True}))
+        show(rows, f"request {i} transcription")
+        check_transcripts(rows, s, f"request {i}")
+        if any(r["confidence"] is None for r in rows if r["is_final"]):
+            raise AssertionError(f"request {i}: a ring-decode final without a confidence")
+    log("# request " + json.dumps({"audio_s": secs[0], "wall_s": wall_w, "lines": len(rows_w), "batcher": False}))
+    show(rows_w, "request 4 (no batcher) transcription")
+    check_transcripts(rows_w, secs[0], "request 4 (no batcher)")
     log("# batcher " + json.dumps(stats))
-    log(f"# segment-final path wall: serve {t_serve * 1e3:.1f} ms, transcribe_window {t_window * 1e3:.1f} ms")
+    log(f"# segment-final path wall: 4 batched requests {t_batched * 1e3:.1f} ms, "
+        f"unbatched request {t_window * 1e3:.1f} ms")
 
-    kinds = stats["kinds"]
-    encodes = sum(v["calls"] for k, v in kinds.items() if k.startswith(("whisper_ring:", "whisper_detect:"))) + 1
-    want = cfg.n_audio_layer * encodes
-    log(f"# flash_attention launches {launches} over {encodes} encodes (expected {want})")
-    if launches != want or launches == 0 or counts["windowed_write"] or counts["history_attention"]:
-        raise AssertionError(f"segment-final path launches {counts}, expected {want} flash_attention only")
-    del params
-    torch.cuda.empty_cache()
+    per = flash_per_encode()
+    encodes = sum(kind_calls(stats, p) - kind_calls(before, p) for p in ("whisper_ring:", "whisper_detect:"))
+    # unbatched: language detection on the first segment, one decode per final
+    window_encodes = 1 + sum(r["is_final"] for r in rows_w)
+    want_b, want = per * encodes, per * (encodes + window_encodes)
+    log(f"# flash_attention launches {counts['flash_attention']} over {encodes} batched + {window_encodes} "
+        f"unbatched encodes (expected {want}; batched {counts_b['flash_attention']}, expected {want_b})")
+    if (counts_b["flash_attention"] != want_b or counts["flash_attention"] != want or want_b == 0
+            or counts["windowed_write"] or counts["history_attention"]):
+        raise AssertionError(f"segment-final path launches {counts} (batched {counts_b}), "
+                             f"expected {want} flash_attention only")
     return counts
+
+
+def live_captions_path(resources, n_sessions: int = 2, speech_s: float = 8.0):
+    """Path 3b: concurrent oneshot requests in the shape of
+    ``samples/pipelines/system/live_captions.yml`` (WAV in, JSON out): live
+    partials from the fused streaming step, finals from the stream. Returns
+    the launch counts of its run."""
+    from streamkit_tpu_torch.engine import DeviceBatcher
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    registry = node_registry("cuda")
+    pipeline = stt_pipeline({"model_size": "large-v3", "language": "en", "dtype": "bfloat16",
+                             "partial_transcripts": True, "partial_interval_ms": 250, "streaming_partials": True,
+                             "final_from_stream": True, "vad_block_frames": 8, "min_silence_duration_ms": 700,
+                             "max_segment_duration_secs": 30.0})
+    secs = speech_s + 1.0
+    bodies = [wav_body(np.concatenate([synth_speech(speech_s, seed=i), np.zeros(SR, np.float32)]))
+              for i in range(n_sessions)]
+
+    async def run():
+        batcher = DeviceBatcher(device="cuda")
+        reset_counts()  # counts from here to the end of this path
+        t0 = time.monotonic()
+        out = await asyncio.gather(*(oneshot(registry, pipeline, b, resources, batcher) for b in bodies))
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        counts = read_counts()
+        batcher.stop()
+        return out, counts, batcher.stats(), wall
+
+    # the node's stream-table knobs: a row per request and one fused call per
+    # block as soon as every request's block has arrived
+    with knobs(SK_STREAM_SLOTS=max(4, n_sessions), SK_STREAM_PAD=n_sessions):
+        out, counts, stats, wall = asyncio.run(run())
+    for i, (rows, w) in enumerate(out):
+        n_final = sum(r["is_final"] for r in rows)
+        log("# live request " + json.dumps({"audio_s": secs, "wall_s": w, "partials": len(rows) - n_final,
+                                            "finals": n_final}))
+        show([r for r in rows if r["is_final"]], f"live request {i} final")
+        check_transcripts(rows, secs, f"live request {i}", partials=True)
+    calls = kind_calls(stats, "stream_step:")
+    want = {"flash_attention": flash_per_encode() * (kind_calls(stats, "whisper_ring:")
+                                                      + kind_calls(stats, "whisper_detect:")),
+            "windowed_write": 2 * calls, "history_attention": flash_per_encode() * calls}
+    log("# live batcher " + json.dumps(stats))
+    log(f"# live-captions path: {calls} fused calls, launches {counts}, expected {want}; wall {wall:.1f} s")
+    if counts != want or calls == 0:
+        raise AssertionError(f"live-captions path launched {counts}, expected {want}")
+    return counts
+
+
+def node_context_phase():
+    """The node on ``cuda`` against the node on ``cpu``: a small f32 config
+    whose encoder takes K1 (1500 positions, head dim 64), the same pipeline
+    and WAV, with and without a batcher (the second with ``language:
+    auto``). The Transcription lines must agree: text, language, segment
+    bounds and finality exactly, confidence within 1e-4."""
+    from streamkit_tpu_torch.core import ResourceManager
+    from streamkit_tpu_torch.engine import DeviceBatcher
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig
+    from streamkit_tpu_torch.ops.attention import flash_attention
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    WHISPER_CONFIGS["node-check"] = WhisperConfig(
+        n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=2, n_vocab=51865,
+        n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2)
+    audio = np.concatenate([np.zeros(SR // 2, np.float32), synth_speech(2.5, seed=21), np.zeros(SR, np.float32)])
+    body = wav_body(audio)
+    report = {}
+    for label, params, batched in [("window", {"language": "en"}, False), ("ring", {"language": "auto"}, True)]:
+        pipeline = stt_pipeline(dict(model_size="node-check", dtype="float32", max_tokens=12, **params))
+        got, k1 = {}, {}
+        for device in ("cuda", "cpu"):
+            async def run(device=device):
+                batcher = DeviceBatcher(device=device) if batched else None
+                rows, _ = await oneshot(node_registry(device), pipeline, body, ResourceManager(), batcher)
+                if batcher is not None:
+                    batcher.stop()
+                return rows
+
+            before = flash_attention.launches
+            got[device] = asyncio.run(run())
+            k1[device] = flash_attention.launches - before
+        g, c = got["cuda"], got["cpu"]
+        same = len(g) == len(c) and all(
+            {k: v for k, v in a.items() if k != "confidence"} == {k: v for k, v in b.items() if k != "confidence"}
+            and (a["confidence"] is None) == (b["confidence"] is None)
+            and (a["confidence"] is None or abs(a["confidence"] - b["confidence"]) <= 1e-4)
+            for a, b in zip(g, c))
+        report[label] = {"lines": len(g), "rows": g, "flash_launches": k1}
+        check_transcripts(g, len(audio) / SR, f"node context {label}")
+        if not same or k1["cuda"] == 0 or k1["cpu"] != 0:
+            raise AssertionError(f"node context {label}: cuda {g} != cpu {c} (K1 launches {k1})")
+    WHISPER_CONFIGS.pop("node-check")
+    log("# node context " + json.dumps(report))
 
 
 # ---------------------------------------------------------------------------
@@ -881,20 +1047,31 @@ def main() -> int:
     t0 = time.monotonic()
     context_phase()
     stream_context_phase()
+    node_context_phase()
     log(f"# context phase {time.monotonic() - t0:.1f} s")
+    from streamkit_tpu_torch.core import ResourceManager
+
+    resources = ResourceManager()  # one model load for both node paths
     t0 = time.monotonic()
-    seg = segment_final_path()
-    log(f"# segment-final path {time.monotonic() - t0:.1f} s")
+    seg = segment_final_path(resources)
+    log(f"# segment-final path (oneshot, WhisperNode) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    captions = live_captions_path(resources)
+    log(f"# live-captions path (oneshot, WhisperNode) {time.monotonic() - t0:.1f} s")
+    asyncio.run(resources.clear())
+    torch.cuda.empty_cache()
     t0 = time.monotonic()
     live = live_partials_path()
-    log(f"# live-partials path {time.monotonic() - t0:.1f} s")
+    log(f"# live-partials path (SttServingEngine) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     profile_fused_step()
     log(f"# fused-step profile {time.monotonic() - t0:.1f} s")
-    k1.update(launches=seg["flash_attention"], path="segment-final",
-              launches_live_partials=live["flash_attention"])
-    k2.update(launches=live["windowed_write"], path="live-partials")
-    k3.update(launches=live["history_attention"], path="live-partials")
+    k1.update(launches=seg["flash_attention"], path="oneshot segment finals (WhisperNode)",
+              launches_live_captions=captions["flash_attention"], launches_live_partials=live["flash_attention"])
+    k2.update(launches=captions["windowed_write"], path="oneshot live captions (WhisperNode)",
+              launches_live_partials=live["windowed_write"])
+    k3.update(launches=captions["history_attention"], path="oneshot live captions (WhisperNode)",
+              launches_live_partials=live["history_attention"])
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,2 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Utilities: the offline speech-like audio synthesizer."""
+"""Utilities: the offline speech-like audio synthesizer and span tracing."""

@@ -17,11 +17,33 @@ _SCRIPT = textwrap.dedent(
     import sys
     before = set(sys.modules)
     import streamkit_tpu_torch
+    import streamkit_tpu_torch.api
+    import streamkit_tpu_torch.api.messages
+    import streamkit_tpu_torch.api.yaml_compiler
+    import streamkit_tpu_torch.core
+    import streamkit_tpu_torch.core.channel
+    import streamkit_tpu_torch.core.control
+    import streamkit_tpu_torch.core.errors
+    import streamkit_tpu_torch.core.frame_pool
+    import streamkit_tpu_torch.core.helpers
+    import streamkit_tpu_torch.core.node
+    import streamkit_tpu_torch.core.node_config
+    import streamkit_tpu_torch.core.packet_meta
+    import streamkit_tpu_torch.core.pins
+    import streamkit_tpu_torch.core.registry
+    import streamkit_tpu_torch.core.resource_manager
+    import streamkit_tpu_torch.core.state
+    import streamkit_tpu_torch.core.stats
+    import streamkit_tpu_torch.core.telemetry
+    import streamkit_tpu_torch.core.types
     import streamkit_tpu_torch.device
     import streamkit_tpu_torch.engine
     import streamkit_tpu_torch.engine.audio_ring
     import streamkit_tpu_torch.engine.batcher
+    import streamkit_tpu_torch.engine.constants
+    import streamkit_tpu_torch.engine.graph_builder
     import streamkit_tpu_torch.engine.ingest
+    import streamkit_tpu_torch.engine.oneshot
     import streamkit_tpu_torch.engine.stt_serving
     import streamkit_tpu_torch.models
     import streamkit_tpu_torch.models.silero_vad
@@ -32,7 +54,13 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.models.whisper.model
     import streamkit_tpu_torch.models.whisper.streaming
     import streamkit_tpu_torch.models.whisper.tokenizer
+    import streamkit_tpu_torch.nodes
+    import streamkit_tpu_torch.nodes.containers.wav
+    import streamkit_tpu_torch.nodes.core_nodes.basic
+    import streamkit_tpu_torch.nodes.core_nodes.text
+    import streamkit_tpu_torch.nodes.ml
     import streamkit_tpu_torch.nodes.ml.vad_node
+    import streamkit_tpu_torch.nodes.ml.whisper_node
     import streamkit_tpu_torch.ops
     import streamkit_tpu_torch.ops._build
     import streamkit_tpu_torch.ops.attention
@@ -42,12 +70,13 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.ops.stream_attention
     import streamkit_tpu_torch.ops.vad
     import streamkit_tpu_torch.utils.speechsynth
+    import streamkit_tpu_torch.utils.tracing
     new = set(sys.modules) - before
     bad = sorted(
         m for m in new
         if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
         or m == "streamkit_tpu" or m.startswith("streamkit_tpu.")
-        or m == "transformers"
+        or m == "transformers" or m == "yaml"
     )
     assert not bad, bad
     assert "jax" not in sys.modules
@@ -57,6 +86,10 @@ _SCRIPT = textwrap.dedent(
         from streamkit_tpu_torch.engine import DeviceBatcher, SessionAudioRing, SttServingEngine, get_audio_ring
         from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, StreamTable, init_params
         from streamkit_tpu_torch.ops.vad import vad_init_state
+        from streamkit_tpu_torch.core import NodeRegistry
+        from streamkit_tpu_torch.nodes import register_nodes
+        from streamkit_tpu_torch.nodes.ml.vad_node import VadNode
+        from streamkit_tpu_torch.nodes.ml.whisper_node import WhisperNode
 
         for name, call in [
             ("init_params", lambda: init_params(WHISPER_CONFIGS["tiny"])),
@@ -66,6 +99,9 @@ _SCRIPT = textwrap.dedent(
             ("get_audio_ring", lambda: get_audio_ring()),
             ("StreamTable", lambda: StreamTable(WHISPER_CONFIGS["tiny"], torch.float32, max_slots=1)),
             ("SttServingEngine", lambda: SttServingEngine()),
+            ("register_nodes", lambda: register_nodes(NodeRegistry())),
+            ("WhisperNode", lambda: WhisperNode(None)),
+            ("VadNode", lambda: VadNode(None)),
         ]:
             try:
                 call()
@@ -84,6 +120,37 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
+_NO_YAML = textwrap.dedent(
+    """
+    import sys
+    sys.modules["yaml"] = None  # any import of PyYAML now fails
+    from streamkit_tpu_torch.api import compile_pipeline_dict, compile_yaml
+    p = compile_pipeline_dict({"mode": "oneshot", "steps": [
+        {"kind": "streamkit::http_input"}, {"kind": "containers::wav::demuxer"},
+        {"kind": "plugin::native::whisper", "params": {"model_size": "large-v3"}},
+        {"kind": "core::json_serialize"}, {"kind": "streamkit::http_output"}]})
+    assert [n.kind for n in p.nodes.values()][2] == "plugin::native::whisper", p
+    try:
+        compile_yaml("mode: oneshot")
+    except ImportError:
+        print("OK")
+    """
+)
+
+
+def test_api_works_without_yaml():
+    """Pipelines compile from dicts where PyYAML is not installed; only
+    ``compile_yaml`` needs it, at call time."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_YAML], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]

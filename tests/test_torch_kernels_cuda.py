@@ -309,3 +309,82 @@ def test_fused_stream_step_on_cuda_matches_cpu():
         assert torch.equal(getattr(tg, name).cpu(), getattr(tc, name)), name
     codes = np.abs(tg.cache_view("enc_k")[0].astype(int) - tc.cache_view("enc_k")[0].astype(int))
     assert codes.max() <= 1 and (codes > 0).mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["transcribe-window", "ring-batcher-auto-language"])
+def test_whisper_node_pipeline_on_cuda_matches_cpu(batched):
+    """A oneshot STT pipeline through the port's registry and WhisperNode,
+    at a small f32 config whose encoder takes K1 (1500 positions, head dim
+    64), on the card and on the CPU: the same Transcription JSON lines
+    (text, language, segment bounds, and finality by order; confidence
+    within 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+    import io
+    import json
+    import wave
+
+    import numpy as np
+
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+    from streamkit_tpu_torch.core import NodeRegistry, ResourceManager
+    from streamkit_tpu_torch.engine import DeviceBatcher, run_oneshot_pipeline
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig
+    from streamkit_tpu_torch.nodes import register_nodes
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    WHISPER_CONFIGS["card-node-test"] = WhisperConfig(
+        n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=2, n_vocab=51865,
+        n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2)
+    x = np.concatenate([np.zeros(8000, np.float32), synth_speech(2.5, seed=21), np.zeros(16000, np.float32)])
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    body = buf.getvalue()
+    pipeline = compile_pipeline_dict({"mode": "oneshot", "steps": [
+        {"kind": "streamkit::http_input"}, {"kind": "containers::wav::demuxer"},
+        {"kind": "plugin::native::whisper", "params": {
+            "model_size": "card-node-test", "dtype": "float32", "max_tokens": 12,
+            "language": "auto" if batched else "en"}},
+        {"kind": "core::json_serialize", "params": {"newline_delimited": True}},
+        {"kind": "streamkit::http_output"}]})
+
+    def run(device):
+        async def main():
+            reg = NodeRegistry()
+            register_nodes(reg, device=device)
+            batcher = DeviceBatcher(device=device) if batched else None
+
+            async def stream():
+                yield body
+
+            result = await run_oneshot_pipeline(reg, pipeline, input_stream=stream(), resources=ResourceManager(),
+                                                batcher=batcher)
+            out = await result.read_all()
+            if batcher is not None:
+                batcher.stop()
+            return [json.loads(line)["Transcription"] for line in out.decode().splitlines() if line.strip()]
+
+        return asyncio.run(main())
+
+    try:
+        before = tattn.flash_attention.launches
+        got = run("cuda")
+        launched = tattn.flash_attention.launches - before
+        want = run("cpu")
+    finally:
+        WHISPER_CONFIGS.pop("card-node-test", None)
+    assert got and launched > 0
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a["text"], a["language"]) == (b["text"], b["language"])
+        sa, sb = a["segments"][0], b["segments"][0]
+        assert (sa["start_time_ms"], sa["end_time_ms"]) == (sb["start_time_ms"], sb["end_time_ms"])
+        assert (sa["confidence"] is None) == (sb["confidence"] is None)
+        if sb["confidence"] is not None:
+            assert abs(sa["confidence"] - sb["confidence"]) <= 1e-4

@@ -1,0 +1,207 @@
+# SPDX-License-Identifier: Apache-2.0
+"""The port's oneshot engine, graph builder, pipeline compiler and host nodes
+against the JAX package's: the same pipelines and request bodies through
+both registries and both ``run_oneshot_pipeline`` give equal response bytes,
+equal content types and the same refusals."""
+
+import asyncio
+import io
+import os
+import wave
+
+import numpy as np
+import pytest
+import yaml
+
+import streamkit_tpu.api as jax_api
+import streamkit_tpu.core as jax_core
+import streamkit_tpu.engine as jax_engine
+import streamkit_tpu.nodes as jax_nodes
+import streamkit_tpu_torch.api as torch_api
+import streamkit_tpu_torch.core as torch_core
+import streamkit_tpu_torch.engine as torch_engine
+import streamkit_tpu_torch.nodes as torch_nodes
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGES = {
+    "jax": (jax_api, jax_core, jax_engine, jax_nodes),
+    "torch": (torch_api, torch_core, torch_engine, torch_nodes),
+}
+
+
+@pytest.fixture(scope="module")
+def registries():
+    out = {}
+    for name, (_, core, _, nodes) in PACKAGES.items():
+        reg = core.NodeRegistry()
+        if name == "torch":
+            nodes.register_nodes(reg, device="cpu")
+        else:
+            nodes.register_nodes(reg)
+        out[name] = reg
+    return out
+
+
+def wav_bytes(rate=16000, channels=1, secs=0.25, sampwidth=2, seed=0) -> bytes:
+    rng = np.random.RandomState(seed)
+    x = (0.3 * rng.randn(int(rate * secs) * channels)).clip(-1, 1)
+    if sampwidth == 1:
+        raw = ((x * 127) + 128).astype(np.uint8).tobytes()
+    elif sampwidth == 2:
+        raw = (x * 32767).astype("<i2").tobytes()
+    else:
+        raw = (x * 2147483647).astype("<i4").tobytes()
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(sampwidth)
+        w.setframerate(rate)
+        w.writeframes(raw)
+    return buf.getvalue()
+
+
+def run(pkg: str, registries, doc: dict, body: bytes = b"", chunk: int = 4096, **kw):
+    """Compile ``doc`` with ``pkg``'s compiler and run it through its
+    registry and oneshot engine → (content type, response bytes)."""
+    api, _, engine, _ = PACKAGES[pkg]
+    pipeline = api.compile_pipeline_dict(doc)
+
+    async def main():
+        async def stream():
+            for i in range(0, len(body), chunk):
+                yield body[i : i + chunk]
+
+        result = await engine.run_oneshot_pipeline(registries[pkg], pipeline, input_stream=stream(), **kw)
+        return result.content_type, await result.read_all()
+
+    return asyncio.run(main())
+
+
+def both(registries, doc, body=b"", **kw):
+    got = {pkg: run(pkg, registries, doc, body, **kw) for pkg in PACKAGES}
+    return got["jax"], got["torch"]
+
+
+def steps(*kinds_params) -> dict:
+    return {"mode": "oneshot",
+            "steps": [{"kind": k, "params": p} if p else {"kind": k} for k, p in kinds_params]}
+
+
+@pytest.mark.parametrize(
+    "rate,channels,sampwidth,frame,bits",
+    [(16000, 1, 2, 960, 16), (48000, 2, 2, 480, 16), (22050, 1, 1, 960, 32), (8000, 2, 4, 333, 32)],
+)
+def test_wav_demux_mux_bytes_equal(registries, rate, channels, sampwidth, frame, bits):
+    body = wav_bytes(rate, channels, sampwidth=sampwidth, seed=rate)
+    doc = steps(("streamkit::http_input", None),
+                ("containers::wav::demuxer", {"frame_samples_per_channel": frame}),
+                ("containers::wav::muxer", {"bits": bits}),
+                ("streamkit::http_output", None))
+    (ct_j, out_j), (ct_t, out_t) = both(registries, doc, body, chunk=1000)
+    assert ct_t == ct_j == "audio/wav"
+    assert len(out_t) > 44 and out_t == out_j
+
+
+@pytest.mark.parametrize("params", [{"newline_delimited": True}, {}, {"pretty": True}])
+def test_json_serialize_lines_equal(registries, params):
+    body = wav_bytes(secs=0.05, seed=3)
+    doc = steps(("streamkit::http_input", None),
+                ("containers::wav::demuxer", {"frame_samples_per_channel": 160}),
+                ("core::json_serialize", params),
+                ("streamkit::http_output", None))
+    (ct_j, out_j), (ct_t, out_t) = both(registries, doc, body)
+    assert ct_t == ct_j == "application/json"
+    assert out_t and out_t == out_j
+
+
+@pytest.mark.parametrize(
+    "doc,kw",
+    [
+        # configured on the output node
+        (steps(("streamkit::http_input", None), ("core::json_serialize", None),
+               ("streamkit::http_output", {"content_type": "text/x-test"})), {}),
+        # the upstream node's static type (the muxer)
+        (steps(("streamkit::http_input", None), ("containers::wav::demuxer", None),
+               ("containers::wav::muxer", None), ("streamkit::http_output", None)), {}),
+        # the request's own type through a passthrough
+        (steps(("streamkit::http_input", None), ("core::passthrough", None),
+               ("streamkit::http_output", None)), {"input_content_type": "audio/x-raw"}),
+        # nothing known: octet-stream
+        (steps(("streamkit::http_input", None), ("core::passthrough", None),
+               ("streamkit::http_output", None)), {}),
+        # the caller's configured type wins over everything
+        (steps(("streamkit::http_input", None), ("core::json_serialize", None),
+               ("streamkit::http_output", None)), {"configured_content_type": "application/x-ndjson"}),
+    ],
+)
+def test_negotiated_content_type_equal(registries, doc, kw):
+    body = wav_bytes(secs=0.02)
+    (ct_j, out_j), (ct_t, out_t) = both(registries, doc, body, **kw)
+    assert ct_t == ct_j
+    assert out_t == out_j
+
+
+def _refusal(pkg, registries, doc):
+    _, core, _, _ = PACKAGES[pkg]
+    with pytest.raises(core.ValidationFailure) as e:
+        run(pkg, registries, doc)
+    return str(e.value)
+
+
+@pytest.mark.parametrize(
+    "doc",
+    [
+        # no http_output
+        {"mode": "oneshot", "steps": [{"kind": "streamkit::http_input"}]},
+        # binary into a 16 kHz raw-audio input
+        steps(("streamkit::http_input", None), ("plugin::native::whisper", None), ("streamkit::http_output", None)),
+        # raw audio into a binary input
+        steps(("streamkit::http_input", None), ("containers::wav::demuxer", None),
+              ("containers::wav::demuxer", None), ("streamkit::http_output", None)),
+        # VAD events into the WAV muxer
+        steps(("streamkit::http_input", None), ("containers::wav::demuxer", None), ("plugin::native::vad", None),
+              ("containers::wav::muxer", None), ("streamkit::http_output", None)),
+        # two http_outputs
+        {"mode": "oneshot", "nodes": {
+            "i": {"kind": "streamkit::http_input"},
+            "a": {"kind": "streamkit::http_output", "needs": "i"},
+            "b": {"kind": "streamkit::http_output", "needs": "i"}}},
+    ],
+    ids=["no-http-output", "binary-to-audio", "audio-to-binary", "events-to-muxer", "two-outputs"],
+)
+def test_refusals_are_the_same_validation_failures(registries, doc):
+    assert _refusal("torch", registries, doc) == _refusal("jax", registries, doc)
+
+
+def test_dynamic_mode_is_refused_by_both(registries):
+    doc = dict(steps(("streamkit::http_input", None), ("streamkit::http_output", None)), mode="dynamic")
+    assert _refusal("torch", registries, doc) == _refusal("jax", registries, doc)
+
+
+SAMPLE_DIR = os.path.join(REPO, "samples", "pipelines", "system")
+WAV_STT = steps(("streamkit::http_input", None), ("containers::wav::demuxer", None),
+                ("plugin::native::whisper", {"model_size": "large-v3", "dtype": "bfloat16", "language": "auto"}),
+                ("core::json_serialize", {"newline_delimited": True}), ("streamkit::http_output", None))
+
+
+@pytest.mark.parametrize(
+    "source", ["speech_to_text.yml", "live_captions.yml", "wav-stt"],
+)
+@pytest.mark.parametrize("optimize", [True, False])
+def test_compile_pipeline_dict_equal(source, optimize):
+    if source == "wav-stt":
+        doc = dict(WAV_STT)
+    else:
+        with open(os.path.join(SAMPLE_DIR, source)) as f:
+            doc = yaml.safe_load(f)
+    doc["optimize"] = optimize
+    got_j = jax_api.compile_pipeline_dict(dict(doc)).to_json()
+    got_t = torch_api.compile_pipeline_dict(dict(doc)).to_json()
+    assert got_t == got_j
+    assert got_t["nodes"]
+
+
+def test_compile_yaml_equal_on_the_stt_sample():
+    with open(os.path.join(SAMPLE_DIR, "speech_to_text.yml")) as f:
+        text = f.read()
+    assert torch_api.compile_yaml(text).to_json() == jax_api.compile_yaml(text).to_json()
