@@ -54,13 +54,33 @@
 7. Profiles a few fused steps at the live-partials path's shape (large-v3,
    8 slots) with ``torch.profiler``: host wall per call against the
    device's kernel time, by kernel.
+8. The repo's own sample pipelines: ``speech_to_text.yml`` on
+   ``samples/media/speech_30s.ogg`` (whisper at large-v3 bf16), with and
+   without the compiler's decode-resample fusion, and ``double_volume.yml``
+   on ``samples/media/tone.wav`` with a batcher (the batched ``audio::gain``
+   kind; bytes equal to the port's CPU run).
+9. A dynamic session: ``live_captions.yml``'s graph through
+   ``start_dynamic_engine``, files in place of MoQ at its two ends; every
+   fused call must launch exactly 2 K2 and 32 K3, and K1 32 per ring
+   decode (the close of a segment still open at the end of the file).
+   One load check of libopus comes before 8 and 9, and a line says its
+   result: without libopus 8 runs only ``double_volume.yml`` and 9 reads
+   ``samples/media/speech_8s.wav`` through the WAV demuxer.
+10. DSP through the registry: 128 concurrent oneshot requests of 60 s
+   (48 kHz mono, 44.1 kHz stereo → 16 kHz) through ``audio::resampler`` at
+   ``compat: exact``, ``backend: device`` and one ``DeviceBatcher`` (the
+   slot-table route, end-of-file flush included), byte for byte against the
+   same requests on the node's host route (``LinearResampler``), every slot
+   free after; one batched step's device time and launches against its
+   byte bound; gain branches into ``audio::mixer``, with and without a
+   batcher, bit for bit against numpy.
 
-Kernel launch counts are set to 0 just before each path (4, 5, 6) and read
-just after; each must equal what the code implies (K1: 32 per encode of 256
-or more positions; K2: 2 per fused step call, one for the encoder caches
-and their scales and one for the two decoder folds; K3: 32 per fused step
-call). Every batcher kind these paths dispatch is registered by the port's
-``WhisperNode`` or ``SttServingEngine``, never by this script.
+Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9)
+and read just after; each must equal what the code implies (K1: 32 per
+encode of 256 or more positions; K2: 2 per fused step call, one for the
+encoder caches and their scales and one for the two decoder folds; K3: 32
+per fused step call). Every batcher kind these paths dispatch is registered
+by the port's nodes or ``SttServingEngine``, never by this script.
 Kernel times are device times by the profiler (CUDA-event times of a run of
 calls beside them, which include the gaps where the device waits for the
 host).
@@ -1032,6 +1052,383 @@ def profile_fused_step(S: int = 8, warm: int = 4, steps: int = 3):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 5. DSP on the card: the filter nodes through the registry
+# ---------------------------------------------------------------------------
+def numpy_mix(xs, chans, dst: int, out: int) -> np.ndarray:
+    """``mix_frames`` in numpy: channel conversion, zero-pad or cut, then
+    left-to-right f32 accumulation."""
+    acc = np.zeros(xs[0].shape[:-1] + (out,), np.float32)
+    for x, ch in zip(xs, chans):
+        y = x.reshape(x.shape[:-1] + (-1, ch))
+        if ch == 1 and dst == 2:
+            y = np.repeat(y, 2, axis=-1)
+        elif ch == 2 and dst == 1:
+            y = (y[..., 0:1] + y[..., 1:2]) * np.float32(0.5)
+        elif ch != dst:
+            y = y[..., np.arange(dst) % ch]
+        y = y.reshape(y.shape[:-2] + (-1,))
+        n = y.shape[-1]
+        y = np.pad(y, [(0, 0)] * (y.ndim - 1) + [(0, out - n)]) if n < out else y[..., :out]
+        acc = acc + y
+    return acc
+
+
+def float_wav(x: np.ndarray, rate: int, ch: int) -> bytes:
+    """A 32-bit float WAV of the interleaved samples ``x``."""
+    import struct
+
+    data = x.astype("<f4").tobytes()
+    return b"".join([b"RIFF", struct.pack("<I", 36 + len(data)), b"WAVE", b"fmt ",
+                     struct.pack("<IHHIIHH", 16, 3, ch, rate, rate * ch * 4, ch * 4, 32),
+                     b"data", struct.pack("<I", len(data)), data])
+
+
+def float_samples(wav: bytes) -> np.ndarray:
+    """The samples of a streamed 32-bit float WAV from ``containers::wav::muxer``
+    (a 44-byte header, then the data)."""
+    if wav[:4] != b"RIFF" or wav[36:40] != b"data":
+        raise AssertionError("not the muxer's float WAV")
+    return np.frombuffer(wav[44:], "<f4")
+
+
+def run_requests(registry, pipeline, bodies, batched: bool):
+    """Every body as its own oneshot request, all at once (one
+    ``DeviceBatcher`` on the card when ``batched``) → (responses, wall s,
+    the stopped batcher or None)."""
+    from streamkit_tpu_torch.engine import DeviceBatcher
+
+    async def run():
+        batcher = DeviceBatcher(device="cuda") if batched else None
+        t0 = time.monotonic()
+        got = await asyncio.gather(*(oneshot_bytes(registry, pipeline, b, batcher=batcher) for b in bodies))
+        wall = time.monotonic() - t0
+        if batcher is not None:
+            batcher.stop()
+        return [out for _, out, _ in got], wall, batcher
+
+    return asyncio.run(run())
+
+
+def dsp_phase(S: int = 128, secs: float = 60.0) -> dict:
+    """The filter nodes on the card, through the port's registry and oneshot
+    engine. (1) The resampler's slot-table route: S concurrent requests of
+    ``secs`` of audio each (``http_input → containers::wav::demuxer →
+    audio::resampler → containers::wav::muxer → http_output``; the resampler
+    at ``compat: exact``, ``backend: device``, 960-frame chunks, 20 ms output
+    frames) share one ``DeviceBatcher``, for 48 kHz mono and 44.1 kHz stereo
+    to 16 kHz. Every response must equal, byte for byte, the same request
+    without a batcher, which the node serves on the host
+    (``LinearResampler``). Each input ends 333 frames past a whole chunk, so
+    the end-of-file flush also goes through the slot table; after the
+    requests every slot must be free. One batched step at batch S is then
+    profiled (device time, device launches) against its byte bound. (2) Gain
+    and mixer: ``double_volume.yml``-style gain branches fanned out from one
+    demuxer into ``audio::mixer`` (stereo in, mono out), with a batcher (the
+    gains through the batched ``audio::gain`` kind) and without one, against
+    numpy bit for bit."""
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+    from streamkit_tpu_torch.nodes.audio.filters import resampler_slot_table
+    from streamkit_tpu_torch.ops.resample import max_output_frames
+
+    chunk, tail = 960, 333
+    registry = node_registry("cuda")
+    resample = compile_pipeline_dict({"mode": "oneshot", "steps": [
+        {"kind": "streamkit::http_input"}, {"kind": "containers::wav::demuxer"},
+        {"kind": "audio::resampler", "params": {"target_sample_rate": SR, "chunk_frames": chunk,
+                                                "output_frame_size": 320, "compat": "exact", "backend": "device"}},
+        {"kind": "containers::wav::muxer", "params": {"bits": 32}}, {"kind": "streamkit::http_output"}]})
+    report = {}
+    for rate, ch in ((48000, 1), (44100, 2)):
+        frames = int(secs * rate) + tail
+        bodies = [float_wav(np.random.default_rng(1000 * ch + i).standard_normal(frames * ch, dtype=np.float32)
+                            * np.float32(0.3), rate, ch) for i in range(S)]
+        got, wall, batcher = run_requests(registry, resample, bodies, batched=True)
+        want, host_wall, _ = run_requests(registry, resample, bodies, batched=False)
+        kind = f"resample:{rate}:{SR}:{chunk}:{ch}"
+        table = resampler_slot_table(rate, SR, chunk, ch, "cuda")
+        for i in range(S):
+            if got[i] != want[i]:
+                raise AssertionError(f"dsp {kind}: request {i} differs from the host LinearResampler's")
+        owed = -(-frames * SR // rate)  # the output frames a whole input is owed
+        if len(float_samples(got[0])) != -(-owed // 320) * 320 * ch:
+            raise AssertionError(f"dsp {kind}: {len(float_samples(got[0]))} samples for {frames} input frames")
+        ks = batcher.stats()["kinds"].get(kind, {"calls": 0, "items": 0, "dispatch_s": 0.0})
+        if ks["items"] != S * -(-frames // chunk) or table is None or table.in_use != 0:
+            raise AssertionError(f"dsp {kind}: {ks} chunks through the slot table, "
+                                 f"{table and table.in_use} slots still held")
+        # one batched step at batch S (fresh rows: the sessions freed theirs)
+        step = batcher.registered_kinds()[kind].fn
+        slots = [table.alloc() for _ in range(S)]
+        ids = np.asarray(slots, np.int32)
+        x = torch.from_numpy(np.stack([float_samples(b)[: chunk * ch].reshape(chunk, ch) for b in bodies])).cuda()
+        prof = kernel_ms(lambda: step(ids, x), iters=20)
+        for slot in slots:
+            table.free(slot)
+        max_out = max_output_frames(chunk, rate, SR)
+        nbytes = (S * chunk * ch * 4 + 2 * S * (ch + 1) * 4  # chunks in; rows gathered and written back
+                  + S * max_out * ch * 4 + S * 4 + S * 8)  # outputs, valid counts, slot ids
+        report[kind] = {"sessions": S, "audio_s": frames / rate, "bit_exact": True, "slots_in_use_after": 0,
+                        "wall_s": wall, "host_route_wall_s": host_wall, "calls": ks["calls"], "items": ks["items"],
+                        "mean_batch": ks["items"] / max(ks["calls"], 1), "dispatch_s": ks["dispatch_s"],
+                        "step_ms": prof["ms"], "step_event_ms": prof["event_ms"],
+                        "step_launches": prof.get("kernels_per_call"), "step_batch": S, "step_bytes": nbytes,
+                        "step_bound_ms": nbytes / H100_BYTES * 1e3}
+        log("# dsp " + json.dumps({kind: report[kind]}))
+        del bodies, got, want, x
+    # gain and mixer nodes on the card against numpy, bit for bit
+    g_a, g_b, rate, ch = 2.0, 1 / 3, 48000, 2
+    mix = compile_pipeline_dict({"mode": "oneshot", "nodes": {
+        "http_input": {"kind": "streamkit::http_input"},
+        "demux": {"kind": "containers::wav::demuxer", "needs": "http_input"},
+        "gain_a": {"kind": "audio::gain", "params": {"gain": g_a}, "needs": "demux"},
+        "gain_b": {"kind": "audio::gain", "params": {"gain": g_b}, "needs": "demux"},
+        # a sync timeout far above any round's wait: each round mixes both branches
+        "mixer": {"kind": "audio::mixer", "params": {"num_inputs": 2, "output_channels": 1, "sync_timeout_ms": 60000},
+                  "needs": ["gain_a", "gain_b"]},
+        "mux": {"kind": "containers::wav::muxer", "params": {"bits": 32}, "needs": "mixer"},
+        "http_output": {"kind": "streamkit::http_output", "needs": "mux"}}})
+    kinds = {n.kind for n in mix.nodes.values()}
+    if not {"audio::gain", "audio::mixer"} <= kinds:
+        raise AssertionError(f"dsp: the mix pipeline compiled to {kinds}")
+    x = np.random.default_rng(7).standard_normal(2 * rate * ch + 2 * 77, dtype=np.float32) * np.float32(0.3)
+    expect = numpy_mix([x * np.float32(g_a), x * np.float32(g_b)], [ch, ch], 1, x.size // ch)
+    for batched in (True, False):
+        (out,), wall, batcher = run_requests(registry, mix, [float_wav(x, rate, ch)], batched)
+        if float_samples(out).tobytes() != expect.tobytes():
+            raise AssertionError(f"dsp: gain → mixer on the card (batcher {batched}) differs from numpy")
+        calls = kind_calls(batcher.stats(), "audio::gain") if batched else 0
+        if batched and calls == 0:
+            raise AssertionError(f"dsp: the gain nodes never reached the batched kind: {batcher.stats()}")
+        report[f"gain_mixer_{'batched' if batched else 'unbatched'}"] = {"wall_s": wall, "gain_calls": calls,
+                                                                        "bit_exact": True}
+    log("# dsp gain and mixer nodes on the card equal numpy bit for bit " + json.dumps(
+        {k: v for k, v in report.items() if k.startswith("gain_mixer")}))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# 6. the repo's own sample pipelines: Ogg/Opus STT and the gain request
+# ---------------------------------------------------------------------------
+SAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples")
+
+
+def sample_pipeline(name: str, **step_params):
+    """A sample pipeline as written, with ``step_params[kind]`` merged into
+    that step's params, compiled as the server compiles a request's."""
+    import yaml
+
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+
+    with open(os.path.join(SAMPLES, "pipelines", "system", name)) as f:
+        doc = yaml.safe_load(f)
+    for step in doc["steps"]:
+        if step["kind"] in step_params:
+            step["params"] = dict(step.get("params") or {}, **step_params[step["kind"]])
+    return compile_pipeline_dict(doc)
+
+
+async def oneshot_bytes(registry, pipeline, body: bytes, resources=None, batcher=None):
+    """One request → (content type, response bytes, wall seconds)."""
+    from streamkit_tpu_torch.engine import run_oneshot_pipeline
+
+    async def stream():
+        for i in range(0, len(body), 1 << 16):
+            yield body[i : i + (1 << 16)]
+
+    t0 = time.monotonic()
+    result = await run_oneshot_pipeline(registry, pipeline, input_stream=stream(), resources=resources,
+                                        batcher=batcher)
+    out = await result.read_all()
+    return result.content_type, out, time.monotonic() - t0
+
+
+def ogg_opus_path(resources, opus: bool) -> dict:
+    """``speech_to_text.yml`` on ``samples/media/speech_30s.ogg`` (the whisper
+    step at large-v3 bf16, every other step as written) through the port's
+    registry on the card and one ``DeviceBatcher``, twice: fused (the
+    resampler set to ``output_frame_size: 0``, so the compiler folds it into
+    a 16 kHz Opus decode) and unfused (as written: ``audio::resampler``,
+    rubato, on the host). Then ``double_volume.yml`` on
+    ``samples/media/tone.wav`` with a ``DeviceBatcher``, so the gain runs as
+    the batched ``audio::gain`` kind: the card's response bytes must equal
+    the port's CPU run. Without libopus only the second runs."""
+    from streamkit_tpu_torch.engine import DeviceBatcher
+
+    report = {}
+    registry = node_registry("cuda")
+    if opus:
+        with open(os.path.join(SAMPLES, "media", "speech_30s.ogg"), "rb") as f:
+            body = f.read()
+        whisper = {"model_size": "large-v3", "dtype": "bfloat16"}
+        for label, extra in (("fused", {"audio::resampler": {"output_frame_size": 0}}), ("unfused", {})):
+            pipeline = sample_pipeline("speech_to_text.yml", **{"plugin::native::whisper": whisper}, **extra)
+            kinds = [n.kind for n in pipeline.nodes.values()]
+            if ("audio::resampler" in kinds) != (label == "unfused"):
+                raise AssertionError(f"ogg {label}: compiled kinds {kinds}")
+
+            async def run(pipeline=pipeline):
+                batcher = DeviceBatcher(device="cuda")
+                reset_counts()  # counts from here to the end of this request
+                ct, out, wall = await oneshot_bytes(registry, pipeline, body, resources, batcher)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                batcher.stop()
+                return ct, out, wall, counts, batcher.stats()
+
+            ct, out, wall, counts, stats = asyncio.run(run())
+            if ct != "application/json":
+                raise AssertionError(f"ogg {label}: content type {ct}")
+            rows = transcripts(out)
+            show([r for r in rows if r["is_final"]], f"ogg {label} final")
+            check_transcripts(rows, 30.0, f"ogg {label}")
+            encodes = kind_calls(stats, "whisper_ring:") + kind_calls(stats, "whisper_detect:")
+            want = {"flash_attention": flash_per_encode() * encodes, "windowed_write": 0, "history_attention": 0}
+            report[label] = {"kinds": kinds, "wall_s": wall, "lines": len(rows), "encodes": encodes,
+                             "launches": counts, "batcher": stats}
+            log("# ogg " + json.dumps({label: report[label]}))
+            if counts != want or encodes == 0:
+                raise AssertionError(f"ogg {label}: launches {counts}, expected {want}")
+    with open(os.path.join(SAMPLES, "media", "tone.wav"), "rb") as f:
+        tone = f.read()
+    pipeline = sample_pipeline("double_volume.yml")
+
+    async def run_gain():
+        batcher = DeviceBatcher(device="cuda")
+        ct, out, wall = await oneshot_bytes(registry, pipeline, tone, batcher=batcher)
+        batcher.stop()
+        return ct, out, wall, batcher.stats()
+
+    ct_g, out_g, wall_g, stats = asyncio.run(run_gain())
+    ct_c, out_c, _ = asyncio.run(oneshot_bytes(node_registry("cpu"), pipeline, tone))
+    report["double_volume"] = {"wall_s": wall_g, "bytes": len(out_g), "equal_to_cpu": out_g == out_c,
+                               "gain_calls": kind_calls(stats, "audio::gain")}
+    log("# double_volume " + json.dumps(report["double_volume"]))
+    if ct_g != ct_c or out_g != out_c or len(out_g) <= 44:
+        raise AssertionError("double_volume: the card's WAV differs from the CPU run")
+    if report["double_volume"]["gain_calls"] == 0:
+        raise AssertionError(f"double_volume: the gain node never reached the batched kind: {stats}")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# 7. a dynamic session: live_captions.yml's graph with files at its ends
+# ---------------------------------------------------------------------------
+def dynamic_session_path(resources, opus: bool, speed: float = 4.0) -> dict:
+    """``live_captions.yml``'s graph as a dynamic session on the card, built
+    with ``add_node`` / ``connect`` and started through
+    ``start_dynamic_engine`` with one ``DeviceBatcher``. Its two ends are
+    files: ``core::file_reader`` → ``containers::ogg::demuxer`` →
+    ``core::pacer`` (4× real time) in place of the MoQ subscriber, and
+    ``core::file_writer`` in place of the publisher. The Opus decoder,
+    resampler and whisper step take the YAML's params (large-v3 bf16,
+    streaming partials, finals from the stream, 8-frame VAD blocks). The
+    input is ``samples/media/speech_30s.ogg``; without libopus,
+    ``samples/media/speech_8s.wav`` enters through ``containers::wav::demuxer``
+    instead. Every fused call launches 2 K2 and 32 K3; K1 launches only in
+    the ring decodes of the batcher's ``whisper_ring`` / ``whisper_detect``
+    kinds (a segment still open when the file ends is closed with one), 32
+    per encode. Returns the launch counts."""
+    import tempfile
+
+    import yaml
+
+    from streamkit_tpu_torch.engine import DeviceBatcher, DynamicEngineConfig, start_dynamic_engine
+
+    with open(os.path.join(SAMPLES, "pipelines", "system", "live_captions.yml")) as f:
+        steps = {s["kind"]: s.get("params") or {} for s in yaml.safe_load(f)["steps"]}
+    registry = node_registry("cuda")
+    media = os.path.join(SAMPLES, "media", "speech_30s.ogg" if opus else "speech_8s.wav")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "captions.jsonl")
+        if opus:
+            nodes = [("reader", "core::file_reader", {"path": media}), ("demux", "containers::ogg::demuxer", {}),
+                     ("pacer", "core::pacer", {"speed": speed}), ("decode", "audio::opus::decoder", {})]
+        else:
+            nodes = [("reader", "core::file_reader", {"path": media}), ("demux", "containers::wav::demuxer", {}),
+                     ("pacer", "core::pacer", {"speed": speed})]
+        nodes += [("resample", "audio::resampler", steps["audio::resampler"]),
+                  ("stt", "plugin::native::whisper", steps["plugin::native::whisper"]),
+                  ("json", "core::json_serialize", steps["core::json_serialize"]),
+                  ("writer", "core::file_writer", {"path": out_path})]
+
+        async def run():
+            batcher = DeviceBatcher(device="cuda")
+            handle = start_dynamic_engine(registry, DynamicEngineConfig(session_id="live-captions"),
+                                          resources=resources, batcher=batcher)
+            telemetry = await handle.subscribe_telemetry()
+            events = []
+
+            async def collect():
+                while True:
+                    ev = await telemetry.recv_optional()
+                    if ev is None:
+                        return
+                    if ev.event_type in ("stt.partial", "stt.result"):
+                        events.append(ev.event_type)
+
+            collector = asyncio.ensure_future(collect())
+            reset_counts()  # counts from here to the end of the session
+            t0 = time.monotonic()
+            for name, kind, params in nodes:
+                await handle.add_node(name, kind, params)
+            for (a, _, _), (b, _, _) in zip(nodes, nodes[1:]):
+                await handle.connect(a, "out", b, "in")
+            states = {}
+            while time.monotonic() - t0 < 600:
+                await asyncio.sleep(0.25)
+                states = await handle.get_node_states()
+                if any(st.kind.value == "failed" for st in states.values()):
+                    raise AssertionError(f"dynamic session: a node failed: {states}")
+                if len(states) == len(nodes) and all(st.kind.value == "stopped" for st in states.values()):
+                    break
+            else:
+                raise AssertionError(f"dynamic session did not end: {states}")
+            wall = time.monotonic() - t0
+            torch.cuda.synchronize()
+            counts = read_counts()
+            await handle.shutdown_and_wait()
+            collector.cancel()
+            batcher.stop()
+            final_states = {n: st.kind.value for n, st in states.items()}
+            return wall, counts, batcher.stats(), events, final_states
+
+        with knobs(SK_STREAM_SLOTS=4, SK_STREAM_PAD=1):
+            wall, counts, stats, events, states = asyncio.run(run())
+        with open(out_path) as f:
+            rows = transcripts(f.read().encode())
+    calls = kind_calls(stats, "stream_step:")
+    encodes = kind_calls(stats, "whisper_ring:") + kind_calls(stats, "whisper_detect:")
+    finals = events.count("stt.result")
+    # partials before each final: every final follows at least one partial
+    # of its segment (the partials since the previous final)
+    per_final, run_len = [], 0
+    for ev in events:
+        if ev == "stt.partial":
+            run_len += 1
+        else:
+            per_final.append(run_len)
+            run_len = 0
+    report = {"media": os.path.basename(media), "speed": speed, "wall_s": wall, "fused_calls": calls,
+              "ring_encodes": encodes,
+              "mean_batch": stats["kinds"].get(next((k for k in stats["kinds"] if k.startswith("stream_step:")), ""),
+                                               {}).get("items", 0) / max(calls, 1),
+              "partials": events.count("stt.partial"), "finals": finals, "partials_per_final": per_final,
+              "lines": len(rows), "launches": counts, "states": states, "batcher": stats}
+    log("# dynamic session " + json.dumps(report))
+    show([r for r in rows if r["is_final"]], "dynamic session final")
+    want = {"flash_attention": flash_per_encode() * encodes, "windowed_write": 2 * calls,
+            "history_attention": flash_per_encode() * calls}
+    if counts != want or calls == 0:
+        raise AssertionError(f"dynamic session launched {counts}, expected {want}")
+    if finals == 0 or min(per_final) < 1 or len(rows) != len(events):
+        raise AssertionError(f"dynamic session: partials {per_final} before its {finals} finals, "
+                             f"{len(rows)} lines for {len(events)} events")
+    if set(states.values()) != {"stopped"}:
+        raise AssertionError(f"dynamic session: states after the end {states}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1040,6 +1437,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t_script = time.monotonic()
     build_phase()
     t0 = time.monotonic()
     k1, k2, k3 = k1_phase(), k2_phase(8), k3_phase(8)
@@ -1058,6 +1456,16 @@ def main() -> int:
     t0 = time.monotonic()
     captions = live_captions_path(resources)
     log(f"# live-captions path (oneshot, WhisperNode) {time.monotonic() - t0:.1f} s")
+    from streamkit_tpu_torch.nodes.codecs import opus_available
+
+    opus = opus_available()  # the one load check of libopus: it picks the Opus phases' branch
+    log(f"# libopus {'loads' if opus else 'is absent: the Ogg/Opus request is skipped; the dynamic session reads speech_8s.wav'}")
+    t0 = time.monotonic()
+    ogg = ogg_opus_path(resources, opus)
+    log(f"# ogg/opus path (speech_to_text.yml, double_volume.yml) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    dynamic = dynamic_session_path(resources, opus)
+    log(f"# dynamic session path (live_captions.yml graph) {time.monotonic() - t0:.1f} s")
     asyncio.run(resources.clear())
     torch.cuda.empty_cache()
     t0 = time.monotonic()
@@ -1066,12 +1474,19 @@ def main() -> int:
     t0 = time.monotonic()
     profile_fused_step()
     log(f"# fused-step profile {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    dsp_phase()
+    log(f"# dsp phase {time.monotonic() - t0:.1f} s")
+    ogg_k1 = {label: ogg[label]["launches"]["flash_attention"] for label in ("fused", "unfused") if label in ogg}
     k1.update(launches=seg["flash_attention"], path="oneshot segment finals (WhisperNode)",
-              launches_live_captions=captions["flash_attention"], launches_live_partials=live["flash_attention"])
+              launches_live_captions=captions["flash_attention"], launches_live_partials=live["flash_attention"],
+              launches_ogg_opus=ogg_k1, launches_dynamic_session=dynamic["flash_attention"])
     k2.update(launches=captions["windowed_write"], path="oneshot live captions (WhisperNode)",
-              launches_live_partials=live["windowed_write"])
+              launches_live_partials=live["windowed_write"], launches_dynamic_session=dynamic["windowed_write"])
     k3.update(launches=captions["history_attention"], path="oneshot live captions (WhisperNode)",
-              launches_live_partials=live["history_attention"])
+              launches_live_partials=live["history_attention"],
+              launches_dynamic_session=dynamic["history_attention"])
+    log(f"# whole script {time.monotonic() - t_script:.1f} s")
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,10 @@
 // VAD-block assembly off the Python serving loop.
 //
 // A copy of native/shims/ingest.cpp for the PyTorch port, built with g++ at
-// first use (streamkit_tpu_torch/ops/_build.py). Two changes: the Opus
-// replay and batch decoder are left out (the port has no Opus path yet),
-// and skingest_push refuses a session whose paced replay is running (-1):
-// the replay assembles into a thread-local accumulator, so a concurrent
-// push would queue its samples ahead of earlier replayed ones.
+// first use (streamkit_tpu_torch/ops/_build.py). One change: skingest_push
+// refuses a session whose paced replay (PCM or Opus) is running (-1): the
+// replay assembles into a thread-local accumulator, so a concurrent push
+// would queue its samples ahead of earlier replayed ones.
 //
 // Why: the dynamic engine's streaming STT path needs ONE fused device call
 // per VAD block (256 ms) per session — but audio arrives as 20 ms packets,
@@ -37,6 +36,7 @@
 #include <cstdint>
 #include <cstring>
 #include <deque>
+#include <dlfcn.h>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -44,6 +44,35 @@
 namespace {
 
 using Clock = std::chrono::steady_clock;
+
+// -- libopus (dlopen, no headers needed) -------------------------------------
+typedef void* (*opus_create_fn)(int32_t, int, int*);
+typedef int (*opus_decode_float_fn)(void*, const unsigned char*, int32_t, float*, int, int);
+typedef void (*opus_destroy_fn)(void*);
+
+struct OpusApi {
+    opus_create_fn create = nullptr;
+    opus_decode_float_fn decode_float = nullptr;
+    opus_destroy_fn destroy = nullptr;
+    bool ok = false;
+};
+
+OpusApi& opus_api() {
+    static OpusApi api = [] {
+        OpusApi a;
+        void* h = dlopen("libopus.so.0", RTLD_NOW | RTLD_GLOBAL);
+        if (!h) h = dlopen("libopus.so", RTLD_NOW | RTLD_GLOBAL);
+        if (h) {
+            a.create = reinterpret_cast<opus_create_fn>(dlsym(h, "opus_decoder_create"));
+            a.decode_float =
+                reinterpret_cast<opus_decode_float_fn>(dlsym(h, "opus_decode_float"));
+            a.destroy = reinterpret_cast<opus_destroy_fn>(dlsym(h, "opus_decoder_destroy"));
+            a.ok = a.create && a.decode_float && a.destroy;
+        }
+        return a;
+    }();
+    return api;
+}
 
 int64_t now_ns() {
     return std::chrono::duration_cast<std::chrono::nanoseconds>(
@@ -67,6 +96,9 @@ struct Session {
     bool close_at_end = false;
     int64_t replay_start_ns = 0;
     std::vector<float> replay_audio;
+    // opus replay: pre-encoded packets (concatenated bytes + offsets)
+    std::vector<unsigned char> replay_pkts;
+    std::vector<int32_t> replay_offs;
 };
 
 struct Pool {
@@ -170,6 +202,57 @@ void replay_thread(Pool* p, int sid, int frame_samples, int64_t frame_us,
     }
 }
 
+// Opus replay: decode pre-encoded packets natively (libopus decodes any
+// Opus stream straight to the pool's sample rate / channel count — the
+// fused native 16 kHz decode the YAML compiler's decode→resample pass
+// emits) and push the PCM at packet cadence. frame_us = 0 replays at full
+// speed (throughput benches); 20_000 is the realtime Opus cadence. The
+// whole ingress chain (pacing, decode, block assembly) runs on this C++
+// thread: Python only drains coalesced blocks.
+void replay_opus_thread(Pool* p, int sid, int sample_rate, int channels,
+                        int64_t frame_us, int64_t start_delay_us) {
+    Session& s = p->sessions[sid];
+    auto start = Clock::now() + std::chrono::microseconds(start_delay_us);
+    {
+        std::lock_guard<std::mutex> g(p->mu);
+        s.replay_start_ns = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                                start.time_since_epoch())
+                                .count();
+    }
+    OpusApi& api = opus_api();
+    int err = 0;
+    void* dec = api.create(sample_rate, channels, &err);
+    const int max_frame = sample_rate * 120 / 1000;  // 120 ms max opus frame
+    std::vector<float> pcm(size_t(max_frame) * channels);
+    // session-local block assembly (see emit_blocks)
+    std::vector<float> acc;
+    acc.reserve(size_t(p->block_samples) + size_t(max_frame) * channels);
+    {
+        std::lock_guard<std::mutex> g(p->mu);
+        acc.swap(s.acc);
+    }
+    int64_t n_pkts = (dec && err == 0) ? int64_t(s.replay_offs.size()) - 1 : 0;
+    for (int64_t i = 0; i < n_pkts; i++) {
+        if (frame_us > 0)
+            std::this_thread::sleep_until(start +
+                                          std::chrono::microseconds(i * frame_us));
+        if (s.replay_stop.load(std::memory_order_relaxed)) break;
+        const unsigned char* pkt = s.replay_pkts.data() + s.replay_offs[i];
+        const int32_t len = s.replay_offs[i + 1] - s.replay_offs[i];
+        const int n = api.decode_float(dec, pkt, len, pcm.data(), max_frame, 0);
+        if (n <= 0) continue;
+        acc.insert(acc.end(), pcm.data(), pcm.data() + size_t(n) * channels);
+        if (emit_blocks(p, sid, acc, now_ns())) p->cv.notify_all();
+    }
+    if (dec) api.destroy(dec);
+    {
+        std::lock_guard<std::mutex> g(p->mu);
+        s.acc.insert(s.acc.end(), acc.begin(), acc.end());
+        s.replaying = false;
+        if (s.close_at_end) s.open = false;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -213,6 +296,8 @@ void skingest_close(void* pool, int sid) {
     s.open = false;
     s.acc.clear();
     s.replay_audio.clear();
+    s.replay_pkts.clear();
+    s.replay_offs.clear();
     s.replay_stop.store(false);
 }
 
@@ -252,6 +337,33 @@ int skingest_start_replay(void* pool, int sid, const float* audio, long long n,
     }
     s.replay = std::thread(replay_thread, p, sid, frame_samples, frame_us,
                            start_delay_us);
+    return 0;
+}
+
+// start an Opus-packet replay: packets (concatenated bytes + offsets[n+1])
+// are copied; a dedicated thread decodes each natively at `sample_rate`/
+// `channels` and pushes the PCM every `frame_us` (0 = full speed). Returns
+// -2 when libopus is unavailable.
+int skingest_start_replay_opus(void* pool, int sid, const unsigned char* data,
+                               const int32_t* offsets, int n_packets,
+                               int sample_rate, int channels,
+                               long long frame_us, long long start_delay_us,
+                               int close_at_end) {
+    auto* p = static_cast<Pool*>(pool);
+    if (sid < 0 || size_t(sid) >= p->sessions.size() || n_packets < 0) return -1;
+    if (!opus_api().ok) return -2;
+    Session& s = p->sessions[sid];
+    {
+        std::lock_guard<std::mutex> g(p->mu);
+        if (!s.open || s.replay.joinable()) return -1;
+        s.replay_pkts.assign(data, data + offsets[n_packets]);
+        s.replay_offs.assign(offsets, offsets + n_packets + 1);
+        s.close_at_end = close_at_end != 0;
+        s.replay_stop.store(false);
+        s.replaying = true;
+    }
+    s.replay = std::thread(replay_opus_thread, p, sid, sample_rate, channels,
+                           frame_us, start_delay_us);
     return 0;
 }
 
@@ -307,5 +419,68 @@ long long skingest_dropped(void* pool) {
 }
 
 long long skingest_now_ns(void) { return now_ns(); }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Batched Opus decode (dlopen libopus, no headers needed).
+//
+// Why here: the opus decoder node's hot loop is one libopus call per 20 ms
+// packet; through Python ctypes each call costs ~2x the decode itself in
+// argument marshalling. One C call decodes a whole greedy batch: packets
+// arrive concatenated with an offsets table, PCM returns in one contiguous
+// [n, max_frame*channels] buffer. Reference parity:
+// crates/nodes/src/audio/codecs/opus.rs:102-140 does the same work on a
+// spawn_blocking thread.
+namespace {
+
+struct OpusBatchCtx {
+    void* dec = nullptr;
+    int channels = 1;
+};
+
+}  // namespace
+
+extern "C" {
+
+// returns nullptr when libopus is unavailable or creation fails
+void* skopus_batch_create(int sample_rate, int channels) {
+    OpusApi& api = opus_api();
+    if (!api.ok) return nullptr;
+    int err = 0;
+    void* dec = api.create(sample_rate, channels, &err);
+    if (err != 0 || !dec) return nullptr;
+    auto* ctx = new OpusBatchCtx();
+    ctx->dec = dec;
+    ctx->channels = channels;
+    return ctx;
+}
+
+void skopus_batch_destroy(void* p) {
+    if (!p) return;
+    auto* ctx = static_cast<OpusBatchCtx*>(p);
+    if (ctx->dec) opus_api().destroy(ctx->dec);
+    delete ctx;
+}
+
+// Decode n packets in one call. data = concatenated packet bytes;
+// offsets[n+1] delimits packets; out is a [n, max_frame*channels] f32
+// buffer; out_lens[i] receives samples-per-channel (or the negative libopus
+// error code). Returns the number of successfully decoded packets.
+int skopus_batch_decode(void* p, const unsigned char* data, const int32_t* offsets,
+                        int n, float* out, int max_frame, int32_t* out_lens) {
+    auto* ctx = static_cast<OpusBatchCtx*>(p);
+    OpusApi& api = opus_api();
+    int ok = 0;
+    const int row = max_frame * ctx->channels;
+    for (int i = 0; i < n; i++) {
+        const unsigned char* pkt = data + offsets[i];
+        const int32_t len = offsets[i + 1] - offsets[i];
+        const int r = api.decode_float(ctx->dec, pkt, len, out + size_t(i) * row, max_frame, 0);
+        out_lens[i] = r;
+        if (r >= 0) ok++;
+    }
+    return ok;
+}
 
 }  // extern "C"

@@ -17,7 +17,12 @@ __all__ = ["resolve_device", "strict_fp32"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` means ``cuda``. A CUDA device without a card raises."""
+    """``None`` means ``cuda``. A CUDA device without a card raises.
+
+    The result names one physical device one way: ``cuda`` becomes
+    ``cuda:{current device}`` and ``cpu:0`` becomes ``cpu``, so state kept per
+    device (audio rings, stream tables, model caches, resampler tables) is
+    one object per device whichever alias the caller used."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -25,7 +30,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "no CUDA device is available; pass device='cpu' to run on the CPU"
             )
         strict_fp32()
-    elif dev.type != "cpu":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type == "cpu":
+        dev = torch.device("cpu")
+    else:
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -7,7 +7,10 @@ per-session PCM accumulators and VAD-block assembly in C++
 coalesced :meth:`~IngestPool.drain` per tick instead of per-packet asyncio
 work per session. Transports push decoded PCM with :meth:`~IngestPool.push`;
 load tests and benchmarks use :meth:`~IngestPool.start_replay`, which paces
-a preloaded buffer from a C++ thread.
+a preloaded buffer from a C++ thread, or
+:meth:`~IngestPool.start_replay_opus`, which decodes pre-encoded Opus
+packets there (libopus through ``dlopen``). The same library holds the
+Opus decoder node's batched decode (``skopus_batch_*``).
 
 The shim is built from the port's own source with ``g++`` into ``_build/``
 at first use (:mod:`..ops._build`); a failed build raises.
@@ -43,6 +46,12 @@ def _declare(lib) -> None:
         "skingest_pending": (i, [vp]),
         "skingest_active": (i, [vp]),
         "skingest_dropped": (ll, [vp]),
+        "skingest_start_replay_opus": (i, [vp, i, ctypes.POINTER(ctypes.c_ubyte), ctypes.POINTER(ctypes.c_int32),
+                                           i, i, i, ll, ll, i]),
+        "skopus_batch_create": (vp, [i, i]),
+        "skopus_batch_destroy": (None, [vp]),
+        "skopus_batch_decode": (i, [vp, ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32), i, _F32P, i,
+                                    ctypes.POINTER(ctypes.c_int32)]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -109,6 +118,37 @@ class IngestPool:
             self._pool, sid, audio.ctypes.data_as(_F32P), audio.size,
             frame_samples, frame_us, start_delay_us, 1 if close_at_end else 0,
         )
+        if rc != 0:
+            raise RuntimeError(f"replay refused on session {sid}: closed or already replaying")
+
+    def start_replay_opus(
+        self,
+        sid: int,
+        packets: list,
+        sample_rate: int = 16_000,
+        channels: int = 1,
+        frame_us: int = 20_000,
+        start_delay_us: int = 0,
+        close_at_end: bool = True,
+    ) -> None:
+        """Replay pre-encoded Opus ``packets`` (list of bytes): a C++ thread
+        decodes each natively straight to ``sample_rate`` (libopus resamples
+        internally — the compiler's fused native-rate decode) and pushes the
+        PCM every ``frame_us`` (0 = full speed, for throughput benches). The
+        entire ingress chain — pacing, entropy decode, block assembly — runs
+        off the Python thread."""
+        data = np.ascontiguousarray(np.frombuffer(b"".join(packets), np.uint8))
+        offs = np.zeros(len(packets) + 1, np.int32)
+        np.cumsum([len(p) for p in packets], out=offs[1:])
+        rc = self._lib.skingest_start_replay_opus(
+            self._pool, sid,
+            data.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(packets), sample_rate, channels,
+            frame_us, start_delay_us, 1 if close_at_end else 0,
+        )
+        if rc == -2:
+            raise RuntimeError("libopus unavailable for opus replay")
         if rc != 0:
             raise RuntimeError(f"replay refused on session {sid}: closed or already replaying")
 

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.whisper import WHISPER_CONFIGS, WhisperDetokenizer, init_params, load_pretrained
+from ..models.whisper import WHISPER_CONFIGS, WhisperDetokenizer, load_pretrained, seeded_params
 from ..models.whisper.config import language_index
 from ..models.whisper.decode import transcribe_ring
 from ..models.whisper.streaming import CHUNK_POS, CHUNK_SAMPLES, RIGHT_CTX, get_stream_table
@@ -164,7 +164,7 @@ class SttServingEngine:
                 cfg, params = load_pretrained(self.model_path, self.dtype, device=dev)
                 return cfg, params, WhisperDetokenizer.from_model_dir(self.model_path)
             cfg = WHISPER_CONFIGS[self.model_size]
-            params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), self.dtype, device=dev)
+            params = seeded_params(cfg, self.dtype, dev)
             return cfg, params, WhisperDetokenizer()
 
         self._cfg, self._params, self._detok = await loop.run_in_executor(None, build)

@@ -12,6 +12,6 @@ from .decode import (
     transcribe_window,
 )
 from .load import config_from_hf, load_pretrained, params_from_hf_state_dict, params_from_numpy
-from .model import decode_logits, decode_step, encode, init_kv_cache, init_params
+from .model import decode_logits, decode_step, encode, init_kv_cache, init_params, seeded_params
 from .streaming import StreamTable, get_stream_table
 from .tokenizer import WhisperDetokenizer

@@ -34,6 +34,7 @@ __all__ = [
     "Params",
     "build_params",
     "init_params",
+    "seeded_params",
     "encode",
     "decode_logits",
     "init_kv_cache",
@@ -180,6 +181,16 @@ def init_params(
         return a.to(dtype)
 
     return build_params(_spec_map(_param_spec(cfg), materialize))
+
+
+def seeded_params(cfg: WhisperConfig, dtype: torch.dtype = torch.float32, device=None) -> Params:
+    """The random weights of a config without a checkpoint: drawn on the CPU
+    from seed 0 and then moved to ``device`` (default ``cuda``). Every entry
+    point (the whisper node, the serving engine) draws through this, so one
+    config gives one model on every device, as the reference's one
+    ``PRNGKey(0)`` does."""
+    dev = resolve_device(device)
+    return init_params(cfg, torch.Generator().manual_seed(0), dtype, device="cpu").to(dev)
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:

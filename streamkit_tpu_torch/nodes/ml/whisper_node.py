@@ -56,8 +56,8 @@ from ...engine.audio_ring import get_audio_ring
 from ...models.whisper import (
     WHISPER_CONFIGS,
     WhisperDetokenizer,
-    init_params,
     load_pretrained,
+    seeded_params,
     transcribe_window,
 )
 from ...models.whisper.config import WHISPER_LANGUAGES, language_index
@@ -239,11 +239,7 @@ class WhisperNode(ProcessorNode):
                     if not self.allow_random_init:
                         raise ConfigurationError(f"model not found: {self.model_path}")
                     cfg = WHISPER_CONFIGS[self.model_size]
-                    # drawn on the CPU from seed 0 and then moved: one node
-                    # config gives the same weights on every device
-                    params = init_params(
-                        cfg, torch.Generator().manual_seed(0), self.dtype, device="cpu"
-                    ).to(self.device)
+                    params = seeded_params(cfg, self.dtype, self.device)
                     tok = WhisperDetokenizer()
                 return cfg, params, tok
 

@@ -41,9 +41,12 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.engine.audio_ring
     import streamkit_tpu_torch.engine.batcher
     import streamkit_tpu_torch.engine.constants
+    import streamkit_tpu_torch.engine.distributor
+    import streamkit_tpu_torch.engine.dynamic
     import streamkit_tpu_torch.engine.graph_builder
     import streamkit_tpu_torch.engine.ingest
     import streamkit_tpu_torch.engine.oneshot
+    import streamkit_tpu_torch.engine.slots
     import streamkit_tpu_torch.engine.stt_serving
     import streamkit_tpu_torch.models
     import streamkit_tpu_torch.models.silero_vad
@@ -55,8 +58,15 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.models.whisper.streaming
     import streamkit_tpu_torch.models.whisper.tokenizer
     import streamkit_tpu_torch.nodes
+    import streamkit_tpu_torch.nodes.audio.filters
+    import streamkit_tpu_torch.nodes.codecs
+    import streamkit_tpu_torch.nodes.codecs.opus
+    import streamkit_tpu_torch.nodes.containers.ogg
     import streamkit_tpu_torch.nodes.containers.wav
     import streamkit_tpu_torch.nodes.core_nodes.basic
+    import streamkit_tpu_torch.nodes.core_nodes.file_io
+    import streamkit_tpu_torch.nodes.core_nodes.pacer
+    import streamkit_tpu_torch.nodes.core_nodes.telemetry_nodes
     import streamkit_tpu_torch.nodes.core_nodes.text
     import streamkit_tpu_torch.nodes.ml
     import streamkit_tpu_torch.nodes.ml.vad_node
@@ -67,6 +77,7 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.ops.cache_write
     import streamkit_tpu_torch.ops.dsp
     import streamkit_tpu_torch.ops.mel
+    import streamkit_tpu_torch.ops.resample
     import streamkit_tpu_torch.ops.stream_attention
     import streamkit_tpu_torch.ops.vad
     import streamkit_tpu_torch.utils.speechsynth
@@ -83,8 +94,11 @@ _SCRIPT = textwrap.dedent(
 
     import torch
     if not torch.cuda.is_available():
-        from streamkit_tpu_torch.engine import DeviceBatcher, SessionAudioRing, SttServingEngine, get_audio_ring
-        from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, StreamTable, init_params
+        from streamkit_tpu_torch.engine import (
+            DeviceBatcher, SessionAudioRing, SlotTable, SttServingEngine, get_audio_ring,
+        )
+        from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, StreamTable, init_params, seeded_params
+        from streamkit_tpu_torch.nodes.audio.filters import GainNode, MixerNode, ResamplerNode
         from streamkit_tpu_torch.ops.vad import vad_init_state
         from streamkit_tpu_torch.core import NodeRegistry
         from streamkit_tpu_torch.nodes import register_nodes
@@ -102,6 +116,11 @@ _SCRIPT = textwrap.dedent(
             ("register_nodes", lambda: register_nodes(NodeRegistry())),
             ("WhisperNode", lambda: WhisperNode(None)),
             ("VadNode", lambda: VadNode(None)),
+            ("seeded_params", lambda: seeded_params(WHISPER_CONFIGS["tiny"])),
+            ("SlotTable", lambda: SlotTable(lambda: {"x": torch.zeros(1)}, max_slots=2)),
+            ("GainNode", lambda: GainNode(None)),
+            ("ResamplerNode", lambda: ResamplerNode(None)),
+            ("MixerNode", lambda: MixerNode(None)),
         ]:
             try:
                 call()

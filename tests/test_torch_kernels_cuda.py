@@ -388,3 +388,151 @@ def test_whisper_node_pipeline_on_cuda_matches_cpu(batched):
         assert (sa["confidence"] is None) == (sb["confidence"] is None)
         if sb["confidence"] is not None:
             assert abs(sa["confidence"] - sb["confidence"]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,channels", [(48000, 1), (44100, 2)])
+def test_slot_table_resampler_on_cuda_matches_host(rate, channels):
+    """The resampler node's slot-table route on the card (``compat: exact``,
+    ``backend: device``, a ``DeviceBatcher``): 8 concurrent oneshot requests
+    through the port's registry give, byte for byte, the responses of the
+    same requests without a batcher (the node's host ``LinearResampler``).
+    Each input ends 333 frames past a whole chunk, so the end-of-file flush
+    runs through the slot table too; after the requests every slot is free."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+    import struct
+
+    import numpy as np
+
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+    from streamkit_tpu_torch.core import NodeRegistry
+    from streamkit_tpu_torch.engine import DeviceBatcher, run_oneshot_pipeline
+    from streamkit_tpu_torch.nodes import register_nodes
+    from streamkit_tpu_torch.nodes.audio.filters import resampler_slot_table
+
+    S, frames = 8, 25 * 960 + 333
+    registry = NodeRegistry()
+    register_nodes(registry, device="cuda")
+    pipeline = compile_pipeline_dict({"mode": "oneshot", "steps": [
+        {"kind": "streamkit::http_input"}, {"kind": "containers::wav::demuxer"},
+        {"kind": "audio::resampler", "params": {"target_sample_rate": 16000, "chunk_frames": 960,
+                                                "output_frame_size": 320, "compat": "exact", "backend": "device"}},
+        {"kind": "containers::wav::muxer", "params": {"bits": 32}}, {"kind": "streamkit::http_output"}]})
+    rng = np.random.RandomState(rate + channels)
+    bodies = []
+    for _ in range(S):
+        data = (rng.randn(frames * channels) * 0.5).astype("<f4").tobytes()
+        bodies.append(b"".join([b"RIFF", struct.pack("<I", 36 + len(data)), b"WAVE", b"fmt ",
+                                struct.pack("<IHHIIHH", 16, 3, channels, rate, rate * channels * 4, channels * 4, 32),
+                                b"data", struct.pack("<I", len(data)), data]))
+
+    async def one(body, batcher):
+        async def stream():
+            yield body
+
+        result = await run_oneshot_pipeline(registry, pipeline, input_stream=stream(), batcher=batcher)
+        return await result.read_all()
+
+    async def run(batched):
+        batcher = DeviceBatcher(device="cuda") if batched else None
+        got = await asyncio.gather(*(one(b, batcher) for b in bodies))
+        if batcher is not None:
+            batcher.stop()
+        return got, batcher
+
+    got, batcher = asyncio.run(run(True))
+    want, _ = asyncio.run(run(False))
+    stats = batcher.stats()
+    kind = f"resample:{rate}:16000:960:{channels}"
+    assert stats["kinds"][kind]["items"] == S * 26  # 25 whole chunks and the end-of-file flush
+    assert stats["device_calls"] < stats["submissions"]  # the sessions batched
+    table = resampler_slot_table(rate, 16000, 960, channels, "cuda")
+    assert table.device.type == "cuda" and table.in_use == 0
+    for i in range(S):
+        assert len(got[i]) > 44 and got[i] == want[i], i
+
+
+@pytest.mark.cuda
+def test_cuda_aliases_share_one_ring_table_and_model():
+    """``cuda`` and ``cuda:0`` name one device: one audio ring, one stream
+    table, one resampler slot table and one whisper model load."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+
+    from streamkit_tpu_torch.core import NodeRegistry, ResourceManager
+    from streamkit_tpu_torch.device import resolve_device
+    from streamkit_tpu_torch.engine import DeviceBatcher, get_audio_ring
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig, get_stream_table
+    from streamkit_tpu_torch.nodes import register_nodes
+    from streamkit_tpu_torch.nodes.audio.filters import _resampler_slot_kind
+
+    torch.cuda.set_device(0)
+    assert resolve_device("cuda") == resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert get_audio_ring("cuda") is get_audio_ring("cuda:0")
+    cfg = WhisperConfig(n_mels=80, n_audio_ctx=64, n_audio_state=32, n_audio_head=2, n_audio_layer=1,
+                        n_vocab=51865, n_text_ctx=16, n_text_state=32, n_text_head=2, n_text_layer=1)
+    a = get_stream_table("cuda-alias", cfg, torch.float32, device="cuda", max_slots=1, enc_t=64, dec_t=16)
+    assert a is get_stream_table("cuda-alias", cfg, torch.float32, device="cuda:0", max_slots=1, enc_t=64, dec_t=16)
+    batcher = DeviceBatcher(device="cuda")
+    _, ta, sa = _resampler_slot_kind(batcher, 32000, 16000, 960, 1, "cuda")
+    _, tb, sb = _resampler_slot_kind(batcher, 32000, 16000, 960, 1, "cuda:0")
+    assert ta is tb
+    ta.free(sa)
+    tb.free(sb)
+    WHISPER_CONFIGS["cuda-alias"] = cfg
+    try:
+        resources = ResourceManager()
+
+        class Ctx:
+            pass
+
+        Ctx.resources = resources
+        for device in ("cuda", "cuda:0"):
+            reg = NodeRegistry()
+            register_nodes(reg, device=device)
+            node = reg.create_node("plugin::native::whisper", {"model_size": "cuda-alias"})
+            asyncio.run(node._load_model(Ctx()))
+        assert resources.misses == 1 and resources.hits == 1
+    finally:
+        WHISPER_CONFIGS.pop("cuda-alias", None)
+
+
+@pytest.mark.cuda
+def test_engine_and_node_have_equal_parameters_on_cuda():
+    """The serving engine and the whisper node draw one model for one
+    config on the card: every parameter tensor is equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+
+    from streamkit_tpu_torch.core import ResourceManager
+    from streamkit_tpu_torch.engine import SttServingEngine
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig
+    from streamkit_tpu_torch.nodes.ml.whisper_node import WhisperNode
+
+    WHISPER_CONFIGS["cuda-draw"] = WhisperConfig(n_mels=80, n_audio_ctx=64, n_audio_state=64, n_audio_head=2,
+                                                 n_audio_layer=2, n_vocab=51865, n_text_ctx=16, n_text_state=64,
+                                                 n_text_head=2, n_text_layer=2)
+    try:
+        eng = SttServingEngine(model_size="cuda-draw", dtype="float32", max_sessions=1, window_buckets=[1.0],
+                               device="cuda")
+
+        async def start_stop():
+            await eng.start()
+            await eng.stop()
+
+        asyncio.run(start_stop())
+
+        class Ctx:
+            resources = ResourceManager()
+
+        _, node_params, _ = asyncio.run(WhisperNode({"model_size": "cuda-draw"}, device="cuda")._load_model(Ctx()))
+    finally:
+        WHISPER_CONFIGS.pop("cuda-draw", None)
+    eng_sd, node_sd = eng._params.state_dict(), node_params.state_dict()
+    assert eng_sd.keys() == node_sd.keys() and len(eng_sd) > 10
+    for k in eng_sd:
+        assert eng_sd[k].device.type == "cuda" and torch.equal(eng_sd[k], node_sd[k]), k

@@ -6,6 +6,7 @@ equal content types and the same refusals."""
 
 import asyncio
 import io
+import json
 import os
 import wave
 
@@ -205,3 +206,124 @@ def test_compile_yaml_equal_on_the_stt_sample():
     with open(os.path.join(SAMPLE_DIR, "speech_to_text.yml")) as f:
         text = f.read()
     assert torch_api.compile_yaml(text).to_json() == jax_api.compile_yaml(text).to_json()
+
+
+# -- the repo's own sample pipelines -------------------------------------------
+from test_torch_whisper_node import hf_dir  # noqa: E402,F401  (module fixture)
+
+MEDIA = os.path.join(REPO, "samples", "media")
+
+
+def sample_doc(name: str, **step_params) -> dict:
+    """A sample pipeline as written, with ``step_params[kind]`` merged into
+    that step's params."""
+    with open(os.path.join(SAMPLE_DIR, name)) as f:
+        doc = yaml.safe_load(f)
+    for step in doc["steps"]:
+        if step["kind"] in step_params:
+            step["params"] = dict(step.get("params") or {}, **step_params[step["kind"]])
+    return doc
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_speech_to_text_sample_lines_equal_jax(registries, hf_dir, fused):  # noqa: F811
+    """``speech_to_text.yml`` (Ogg → Opus → resampler → Whisper → JSON) on
+    ``speech_30s.ogg``, the whisper step pointed at one HF checkpoint at
+    f32, all other steps as written: equal Transcription lines from both
+    packages (text, language and bounds exactly; confidence within 1e-5).
+    Fused: the resampler does no re-framing (``output_frame_size: 0``), so
+    the compiler folds it into a 16 kHz Opus decode. Unfused: as written,
+    ``audio::resampler`` (rubato, host) runs."""
+    from streamkit_tpu_torch.nodes.codecs import opus_available
+
+    if not opus_available():
+        pytest.skip("libopus unavailable")
+    steps = {"plugin::native::whisper": {"model_path": hf_dir, "dtype": "float32", "max_tokens": 8}}
+    if fused:
+        steps["audio::resampler"] = {"output_frame_size": 0}
+    doc = sample_doc("speech_to_text.yml", **steps)
+    kinds = [n.kind for n in torch_api.compile_pipeline_dict(dict(doc)).nodes.values()]
+    assert ("audio::resampler" in kinds) != fused
+    with open(os.path.join(MEDIA, "speech_30s.ogg"), "rb") as f:
+        body = f.read()
+    (ct_j, out_j), (ct_t, out_t) = both(registries, doc, body, chunk=8192)
+    assert ct_t == ct_j == "application/json"
+    lines_j = [json.loads(x)["Transcription"] for x in out_j.decode().splitlines() if x.strip()]
+    lines_t = [json.loads(x)["Transcription"] for x in out_t.decode().splitlines() if x.strip()]
+    assert lines_t and len(lines_t) == len(lines_j)
+    for a, b in zip(lines_t, lines_j):
+        assert (a["text"], a["language"]) == (b["text"], b["language"])
+        for sa, sb in zip(a["segments"], b["segments"]):
+            assert (sa["text"], sa["start_time_ms"], sa["end_time_ms"]) == (sb["text"], sb["start_time_ms"],
+                                                                          sb["end_time_ms"])
+            assert (sa["confidence"] is None) == (sb["confidence"] is None)
+            assert sa["confidence"] is None or abs(sa["confidence"] - sb["confidence"]) <= 1e-5
+
+
+def test_double_volume_sample_bytes_equal_jax(registries):
+    """``double_volume.yml`` as written on ``tone.wav``: equal WAV bytes."""
+    with open(os.path.join(MEDIA, "tone.wav"), "rb") as f:
+        body = f.read()
+    doc = sample_doc("double_volume.yml")
+    (ct_j, out_j), (ct_t, out_t) = both(registries, doc, body)
+    assert ct_t == ct_j == "audio/wav"
+    assert len(out_t) > 44 and out_t == out_j
+
+
+EXACT_RESAMPLE = steps(("streamkit::http_input", None), ("containers::wav::demuxer", None),
+                       ("audio::resampler", {"target_sample_rate": 16000, "compat": "exact"}),
+                       ("containers::wav::muxer", None), ("streamkit::http_output", None))
+
+
+@pytest.mark.parametrize("rate,channels", [(48000, 1), (44100, 2)])
+def test_resampler_slot_table_matches_host_path(registries, rate, channels):
+    """The ``compat: exact`` resampler through the port's ``DeviceBatcher``
+    (slot-table rows on the CPU) gives the host path's bytes and the JAX
+    package's, and frees its slot when the stream ends."""
+    from streamkit_tpu_torch.nodes.audio.filters import resampler_slot_table
+
+    x = np.sin(2 * np.pi * 440 * np.arange(rate * channels) / (rate * channels)) * 0.5
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((x * 32767).astype("<i2").tobytes())
+    body = buf.getvalue()
+    plain = run("torch", registries, EXACT_RESAMPLE, body)
+
+    b = torch_engine.DeviceBatcher(tick_ms=5.0, device="cpu")
+    batched = run("torch", registries, EXACT_RESAMPLE, body, batcher=b)
+    b.stop()
+    assert batched == plain  # the same arithmetic and state logic → the same bytes
+    assert batched == run("jax", registries, EXACT_RESAMPLE, body)
+    assert b.stats()["kinds"][f"resample:{rate}:16000:960:{channels}"]["calls"] > 0
+    table = resampler_slot_table(rate, 16000, 960, channels, "cpu")
+    assert table.in_use == 0  # slot released at node completion
+
+
+@pytest.mark.parametrize("target", [48000, 16000, 24000, 8000])
+def test_resampler_frame_sizes_follow_the_target_rate(registries, target):
+    """``output_frame_size`` is checked against the Opus frame sizes (2.5 to
+    60 ms) at the target rate. At 48 kHz both packages accept and refuse the
+    same sizes; below it the JAX package still checks the 48 kHz sizes, so
+    it refuses ``live_captions.yml``'s 320 (20 ms at 16 kHz), which the port
+    accepts."""
+    def outcome(pkg, size):
+        try:
+            registries[pkg].create_node("audio::resampler", {"target_sample_rate": target, "output_frame_size": size})
+        except Exception as e:  # noqa: BLE001 — compared by type name across the packages
+            return type(e).__name__
+        return "ok"
+
+    per_rate = [target * q // 400 for q in (1, 2, 4, 8, 16, 24)]
+    for size in sorted(set(per_rate + [0, 120, 320, 300, 961, 2880])):
+        want = "ok" if size == 0 or size in per_rate else "ConfigurationError"
+        assert outcome("torch", size) == want, size
+        if target == 48000:
+            assert outcome("jax", size) == want, size
+    with open(os.path.join(SAMPLE_DIR, "live_captions.yml")) as f:
+        params = next(s["params"] for s in yaml.safe_load(f)["steps"] if s["kind"] == "audio::resampler")
+    if target == 16000:
+        assert outcome("torch", params["output_frame_size"]) == "ok"
+        assert outcome("jax", params["output_frame_size"]) == "ConfigurationError"

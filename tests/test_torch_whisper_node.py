@@ -11,6 +11,7 @@ Every route must give identical Transcription lines; confidences agree
 within 1e-5 (f32 greedy on both sides, so the tokens are exact)."""
 
 import asyncio
+import importlib
 import io
 import json
 import wave
@@ -111,21 +112,25 @@ COLLECT_KIND = "test::transcripts"
 def collector_kind(pkg):
     """A passthrough that records every Transcription it forwards as
     ``(text, language, is_final, [(start_ms, end_ms, confidence)])``: the
-    JSON form carries no ``is_final``."""
+    JSON form carries no ``is_final``. It reports its states, as a dynamic
+    session's nodes must."""
     base = PACKAGES[pkg][3].core_nodes.basic.PassthroughNode
+    state = importlib.import_module(f"{PACKAGES[pkg][1].__name__}.state")
     seen = []
 
     class Collect(base):
         async def run(self, ctx):
+            ctx.emit_state(state.NodeState.running())
             while True:
                 pkt = await ctx.recv_with_cancellation("in")
                 if pkt is None:
-                    return
+                    break
                 tr = pkt.transcription
                 if tr is not None:
                     seen.append((tr.text, tr.language, tr.is_final,
                                  [(s.start_time_ms, s.end_time_ms, s.confidence) for s in tr.segments]))
                 await ctx.output.send("out", pkt)
+            ctx.emit_state(state.NodeState.stopped(state.StopReason.INPUT_CLOSED))
 
     return Collect, seen
 
@@ -290,23 +295,32 @@ def _definitions(reg):
 
 
 PORT_KINDS = [
-    "containers::wav::demuxer", "containers::wav::muxer", "core::json_serialize", "core::passthrough",
-    "core::sink", "core::text_chunker", "plugin::native::vad", "plugin::native::whisper",
-    "streamkit::http_input", "streamkit::http_output",
+    "audio::gain", "audio::mixer", "audio::pacer", "audio::resampler", "containers::ogg::demuxer",
+    "containers::ogg::muxer", "containers::wav::demuxer", "containers::wav::muxer", "core::file_reader",
+    "core::file_writer", "core::json_serialize", "core::pacer", "core::passthrough", "core::sink",
+    "core::telemetry_out", "core::telemetry_tap", "core::text_chunker", "plugin::native::vad",
+    "plugin::native::whisper", "streamkit::http_input", "streamkit::http_output",
 ]
+OPUS_KINDS = ["audio::opus::decoder", "audio::opus::encoder"]  # where libopus loads
 
 
 def test_port_registers_exactly_the_ported_kinds(registries):
-    assert registries["torch"].kinds() == PORT_KINDS
+    from streamkit_tpu_torch.nodes.codecs import opus_available
+
+    want = sorted(PORT_KINDS + (OPUS_KINDS if opus_available() else []))
+    assert registries["torch"].kinds() == want
 
 
-@pytest.mark.parametrize("kind", PORT_KINDS)
+@pytest.mark.parametrize("kind", PORT_KINDS + OPUS_KINDS)
 def test_registered_kind_exists_in_jax_with_equal_pins(registries, kind):
     jd, td = _definitions(registries["jax"]), _definitions(registries["torch"])
+    if kind in OPUS_KINDS and kind not in td:
+        pytest.skip("libopus unavailable: the Opus kinds are not registered")
     assert kind in jd and kind in td
     assert td[kind].input_pins == jd[kind].input_pins
     assert td[kind].output_pins == jd[kind].output_pins
     assert td[kind].supports_dynamic_pins == jd[kind].supports_dynamic_pins
+    assert td[kind].description == jd[kind].description
 
 
 # -- VAD node ------------------------------------------------------------------
