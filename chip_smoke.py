@@ -66,7 +66,7 @@
    One load check of libopus comes before 8 and 9, and a line says its
    result: without libopus 8 runs only ``double_volume.yml`` and 9 reads
    ``samples/media/speech_8s.wav`` through the WAV demuxer.
-10. DSP through the registry: 128 concurrent oneshot requests of 60 s
+10. DSP through the registry: 128 concurrent oneshot requests of 30 s
    (48 kHz mono, 44.1 kHz stereo → 16 kHz) through ``audio::resampler`` at
    ``compat: exact``, ``backend: device`` and one ``DeviceBatcher`` (the
    slot-table route, end-of-file flush included), byte for byte against the
@@ -74,10 +74,29 @@
    free after; one batched step's device time and launches against its
    byte bound; gain branches into ``audio::mixer``, with and without a
    batcher, bit for bit against numpy.
+11. Translation at published widths, random weights from seed 0:
+   NLLB-200-distilled-600M (``NllbConfig(vocab_size=256206)``: d 1024,
+   12 + 12 layers, 16 heads) and opus-mt-en-es (``MarianConfig()``: d 512,
+   6 + 6 layers, 8 heads, vocab 65001). 16 texts of 20–120 bytes through
+   the two calls the translate nodes make (``BucketedGreedy.run_batched`` on
+   one ``DeviceBatcher``, bf16, ``max_tokens`` 128); each bucket's rows
+   alone at 16 tokens under the profiler (host wall, device time, idle
+   share, decode steps, kernels per step); one beam-4 batch; 2 rows at f32
+   (``max_tokens`` 16, greedy) with tokens equal to the port's CPU f32
+   run. No kernel of ours is on this path: K1–K3 launch 0 times.
+12. The cascade samples as written: ``speech_translate.yml`` (Whisper
+   tiny → NLLB → NDJSON) and ``voice_translate.yml`` (… → VITS at
+   facebook/mms-tts-eng widths, 24 kHz → WAV), 4 concurrent requests
+   (``speech_8s.wav`` and synthetic speech) through the registry, the
+   oneshot engine and one ``DeviceBatcher``, against the same requests on
+   the CPU at f32: JSON equal byte for byte, WAV headers and lengths equal
+   and 16-bit samples within ``WAVE_TOL``, the VITS durations of every
+   translated sentence equal; K1 4 per Whisper-tiny encode.
+   ``text_to_speech.yml`` runs only where libopus loads (its Opus encoder).
 
-Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9)
-and read just after; each must equal what the code implies (K1: 32 per
-encode of 256 or more positions; K2: 2 per fused step call, one for the
+Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9,
+11, 12) and read just after; each must equal what the code implies (K1: 32
+per encode of 256 or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one for the
 encoder caches and their scales and one for the two decoder folds; K3: 32
 per fused step call). Every batcher kind these paths dispatch is registered
 by the port's nodes or ``SttServingEngine``, never by this script.
@@ -1110,7 +1129,7 @@ def run_requests(registry, pipeline, bodies, batched: bool):
     return asyncio.run(run())
 
 
-def dsp_phase(S: int = 128, secs: float = 60.0) -> dict:
+def dsp_phase(S: int = 128, secs: float = 30.0) -> dict:
     """The filter nodes on the card, through the port's registry and oneshot
     engine. (1) The resampler's slot-table route: S concurrent requests of
     ``secs`` of audio each (``http_input → containers::wav::demuxer →
@@ -1429,6 +1448,350 @@ def dynamic_session_path(resources, opus: bool, speed: float = 4.0) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# 8. translation at full width: NLLB-200-distilled-600M and opus-mt-en-es
+# ---------------------------------------------------------------------------
+def translate_texts(n: int = 16) -> list:
+    """``n`` ASCII texts of 20 to 120 bytes, from seed 0."""
+    rng = np.random.RandomState(0)
+    words = ("the a speech card stream model session sentence audio token decoder batch translate "
+             "device host kernel text word line").split()
+    out = []
+    for size in np.linspace(20, 120, n).astype(int):
+        s = ""
+        while len(s) < size:
+            s += words[rng.randint(len(words))] + " "
+        out.append(s[:size])
+    return out
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_to(tree, device, dtype=None, keep_f32=()):
+    """A parameter tree's tensors moved (and floats cast) as one."""
+    if isinstance(tree, dict):
+        return {k: (v.to(device) if k in keep_f32 else tree_to(v, device, dtype, keep_f32)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device, dtype, keep_f32) for v in tree]
+    return tree.to(device, dtype) if dtype is not None and tree.is_floating_point() else tree.to(device)
+
+
+@contextlib.contextmanager
+def count_steps(module, name: str):
+    """Count the calls of ``module.name`` (a model's cached decode step) made
+    while the block runs, from any thread."""
+    import threading
+
+    real = getattr(module, name)
+    box = {"n": 0}
+    lock = threading.Lock()
+
+    def counted(*a, **kw):
+        with lock:
+            box["n"] += 1
+        return real(*a, **kw)
+
+    setattr(module, name, counted)
+    try:
+        yield box
+    finally:
+        setattr(module, name, real)
+
+
+def profile_call(fn, module, step_name: str) -> dict:
+    """One call under the profiler (CUDA activity only, so the host pays
+    little for it): host wall, device time (the kernels' summed durations),
+    idle share, decode steps (cached decoder steps, the prefix's included)
+    and kernels per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with count_steps(module, step_name) as steps, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ks) / 1e6
+    n = max(1, steps["n"])
+    return {"wall_s": wall, "device_s": busy, "idle_share": max(0.0, 1.0 - busy / wall), "decode_steps": steps["n"],
+            "host_ms_per_step": wall / n * 1e3, "device_ms_per_step": busy / n * 1e3, "kernels": len(ks),
+            "kernels_per_step": len(ks) / n}
+
+
+def translate_family(family: str) -> dict:
+    """One family at its published widths, random weights from seed 0: the
+    two calls ``TranslateNode.run`` / ``MarianTranslateNode.run`` make
+    (``BucketedGreedy.run_batched`` on one ``DeviceBatcher``) for 16 texts at
+    bf16 and ``max_tokens`` 128; each bucket's rows again alone, profiled at
+    ``max_tokens`` 16; one beam-4 batch (timed at 128 tokens, profiled at
+    16); and 2 rows at f32 (``max_tokens`` 16, greedy) whose tokens must
+    equal the port's CPU f32 run."""
+    from streamkit_tpu_torch.engine import DeviceBatcher
+    from streamkit_tpu_torch.models import marian, nllb
+    from streamkit_tpu_torch.nodes.ml import marian_node, translate_node
+    from streamkit_tpu_torch.nodes.ml._text_batching import BucketedGreedy
+
+    if family == "nllb":
+        mod, step_name, cfg = nllb, "nllb_decode_step", nllb.NllbConfig(vocab_size=256206)
+        tok = translate_node._ByteTokenizer()
+        lang = np.asarray(tok.lang_token("spa_Latn"), np.int32)
+        init, keep = nllb.nllb_init_params, ()
+
+        def greedy(p, max_tokens):
+            return lambda src, tgt: nllb.nllb_greedy_cached(p, cfg, src, tgt, max_tokens=max_tokens)
+
+        def beam(p, max_tokens):
+            return lambda src, tgt: nllb.nllb_beam_translate(p, cfg, src, tgt, max_tokens=max_tokens, beam=4)
+    else:
+        mod, step_name, cfg = marian, "marian_decode_step", marian.MarianConfig()
+        tok = marian_node._ByteTok(cfg)
+        lang = None
+        init, keep = marian.marian_init_params, ("logits_bias",)
+
+        def greedy(p, max_tokens):
+            return lambda src: marian.marian_greedy_cached(p, cfg, src, max_tokens=max_tokens)
+
+        def beam(p, max_tokens):
+            return lambda src: marian.marian_beam_translate(p, cfg, src, max_tokens=max_tokens, beam=4)
+
+    extras = () if lang is None else (lang,)
+    t0 = time.monotonic()
+    cpu = init(cfg, 0, device="cpu")  # the node's draw: numpy on the host, then moved
+    bf16 = tree_to(cpu, "cuda", torch.bfloat16, keep)
+    report = {"config": cfg.__dict__, "draw_s": time.monotonic() - t0,
+              "params": sum(t.numel() for t in tree_leaves(bf16))}
+    texts = translate_texts()
+    ids = [tok.encode(t) for t in texts]
+    bg = BucketedGreedy(f"{family}:{id(bf16)}:128:b1", cfg.max_positions, cfg.pad_token_id, greedy(bf16, 128),
+                        device="cuda")
+
+    async def run():
+        batcher = DeviceBatcher(device="cuda")
+        t0 = time.monotonic()
+        out = await asyncio.gather(*(bg.run_batched(batcher, x, *extras) for x in ids))
+        wall = time.monotonic() - t0
+        batcher.stop()
+        return out, wall, batcher.stats()
+
+    reset_counts()
+    with count_steps(mod, step_name) as steps:
+        out, wall, stats = asyncio.run(run())
+    report["batched"] = {"texts": len(texts), "wall_s": wall, "decode_steps": steps["n"], "batcher": stats,
+                         "launches": read_counts()}
+    # lengths count the non-pad tokens: a random opus-mt emits its pad (= its
+    # decoder start) as a real token, so 0 is a valid length there
+    for toks, n in out:
+        if toks.shape != (128,) or not 0 <= n <= 128 or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{family}: bad decode {toks[:8]}, length {n}")
+    report["batched"]["first_tokens"] = [out[0][0][:4].tolist(), out[-1][0][:4].tolist()]
+    report["batched"]["lengths"] = [n for _, n in out]
+    if any(report["batched"]["launches"].values()):
+        raise AssertionError(f"{family}: a Whisper kernel launched on the translation path")
+    by_bucket = {}
+    for x in ids:
+        tb, padded = bg._bucketed(x)
+        by_bucket.setdefault(tb, []).append(padded)
+    # each bucket's call alone, profiled: the batched calls above ran at once
+    # on the batcher's executor threads, so their device time is not theirs
+    # alone; 16 tokens (18 steps) keep the trace small, and a step is a step
+    report["calls"] = {}
+    for tb, rows in sorted(by_bucket.items()):
+        src = torch.as_tensor(np.stack(rows), device="cuda")
+        ext = [torch.as_tensor(np.repeat(e[None], len(rows), 0), device="cuda") for e in extras]
+        with torch.inference_mode():
+            report["calls"][tb] = dict(rows=len(rows), max_tokens=16,
+                                       **profile_call(lambda: greedy(bf16, 16)(src, *ext), mod, step_name))
+    tb = sorted(by_bucket)[len(by_bucket) // 2]
+    src = torch.as_tensor(np.stack(by_bucket[tb]), device="cuda")
+    ext = [torch.as_tensor(np.repeat(e[None], src.shape[0], 0), device="cuda") for e in extras]
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        beam(bf16, 128)(src, *ext)
+        torch.cuda.synchronize()
+        report["beam4"] = dict(bucket=tb, rows=src.shape[0], wall_128_s=time.monotonic() - t0, max_tokens=16,
+                               **profile_call(lambda: beam(bf16, 16)(src, *ext), mod, step_name))
+    # f32 on the card against the CPU: 2 rows, greedy (beam 4 at f32 is held
+    # against the CPU on the nodes' small configuration by the card tests)
+    t0 = time.monotonic()
+    f32 = tree_to(cpu, "cuda")
+    src2 = np.stack([bg._bucketed(x)[1] for x in ids[:2]])[:, : max(len(x) for x in ids[:2])]
+    ext2 = [np.repeat(e[None], 2, 0) for e in extras]
+    equal = {}
+    with torch.inference_mode():
+        for label, make in (("greedy", greedy),):
+            got = [tuple(t.cpu() for t in make(p, 16)(torch.as_tensor(src2, device=d),
+                                                      *[torch.as_tensor(e, device=d) for e in ext2]))
+                   for p, d in ((f32, "cuda"), (cpu, "cpu"))]
+            equal[label] = all(torch.equal(a, b) for a, b in zip(*got))
+            report[f"f32_{label}_tokens"] = got[0][0].tolist()
+    report["f32_equal_to_cpu"] = equal
+    report["f32_check_s"] = time.monotonic() - t0
+    del bf16, f32, cpu
+    torch.cuda.empty_cache()
+    log(f"# translate {family} " + json.dumps(report))
+    if not all(equal.values()):
+        raise AssertionError(f"{family}: f32 tokens on the card differ from the CPU's: {equal}")
+    return report
+
+
+def translate_phase() -> dict:
+    log("# translate: plugin::native::nllb / plugin::native::helsinki reach these widths only through "
+        "model_path (transformers and a tokenizer file, which the repo lacks); the phase makes the "
+        "node's own two calls with the node's byte tokenizer")
+    out = {}
+    for family in ("nllb", "marian"):
+        t0 = time.monotonic()
+        out[family] = translate_family(family)
+        log(f"# translate {family} wall {time.monotonic() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 9. the cascade samples: Whisper → NLLB (→ VITS) through the registry
+# ---------------------------------------------------------------------------
+WAVE_TOL = 32  # 16-bit steps: 1e-3 of full scale between cuDNN's and the CPU's f32 convolutions
+
+
+def wav_samples(body: bytes) -> np.ndarray:
+    return np.frombuffer(body[44:], "<i2").astype(np.int32)
+
+
+def cascade_phase(opus: bool) -> dict:
+    """``speech_translate.yml`` and ``voice_translate.yml`` as written (the
+    whisper and nllb steps set to their default ``dtype: float32``
+    explicitly), 4 concurrent WAV requests (``speech_8s.wav`` and 6 s of
+    synthetic speech, seeds 30–32) through the port's registry, the oneshot
+    engine, one ``ResourceManager`` and one ``DeviceBatcher``, after a warm
+    request; the same requests through the CPU registry and a CPU batcher.
+    Every JSON response equals the CPU's byte for byte; every WAV response
+    has the CPU's header and length and its 16-bit samples within
+    ``WAVE_TOL``. The VITS durations (frames per token, mms-tts-eng widths)
+    of each translated sentence are equal on the card and the CPU. K1
+    launches 4 per Whisper-tiny encode of the batcher's ``whisper_ring`` /
+    ``whisper_detect`` calls; K2 and K3 not at all."""
+    from streamkit_tpu_torch.core import ResourceManager
+    from streamkit_tpu_torch.engine import DeviceBatcher
+    from streamkit_tpu_torch.models import vits
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS
+    from streamkit_tpu_torch.nodes.ml.tts_node import VITS_RANDOM_VOCAB, SentenceSplitter
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    with open(os.path.join(SAMPLES, "media", "speech_8s.wav"), "rb") as f:
+        bodies = [f.read()]
+    bodies += [wav_body(np.concatenate([synth_speech(6.0, seed=30 + i), np.zeros(SR, np.float32)]))
+               for i in range(3)]
+    f32 = {"plugin::native::whisper": {"dtype": "float32"}, "plugin::native::nllb": {"dtype": "float32"}}
+    per_encode = WHISPER_CONFIGS["tiny"].n_audio_layer
+    report, texts = {}, []
+    for name in ("speech_translate.yml", "voice_translate.yml"):
+        pipeline = sample_pipeline(name, **f32)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            registry = node_registry(dev)
+
+            async def run(registry=registry, dev=dev):
+                resources = ResourceManager()
+                warm = DeviceBatcher(device=dev)
+                await oneshot_bytes(registry, pipeline, bodies[0], resources, warm)  # loads the models
+                warm.stop()
+                batcher = DeviceBatcher(device=dev)  # its stats count the four requests alone
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                reset_counts()  # counts from here to the end of the four requests
+                t0 = time.monotonic()
+                res = await asyncio.gather(*(oneshot_bytes(registry, pipeline, b, resources, batcher)
+                                             for b in bodies))
+                wall = time.monotonic() - t0
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                counts = read_counts()
+                batcher.stop()
+                return res, wall, counts, batcher.stats()
+
+            runs[dev] = asyncio.run(run())
+        (card, wall, counts, stats), (host, wall_cpu, _, _) = runs["cuda"], runs["cpu"]
+        encodes = kind_calls(stats, "whisper_ring:") + kind_calls(stats, "whisper_detect:")
+        want = {"flash_attention": per_encode * encodes, "windowed_write": 0, "history_attention": 0}
+        entry = {"wall_s": wall, "wall_cpu_s": wall_cpu, "request_wall_s": [r[2] for r in card], "encodes": encodes,
+                 "launches": counts, "batcher": stats}
+        if name == "speech_translate.yml":
+            equal = [(a[0], a[1]) == (b[0], b[1]) for a, b in zip(card, host)]
+            lines = [[json.loads(x)["Text"] for x in r[1].decode().splitlines() if x.strip()] for r in card]
+            texts = [t for ls in lines for t in ls]
+            entry.update(equal_to_cpu=equal, lines=[len(ls) for ls in lines],
+                         first_line=[ls[0][:48] if ls else None for ls in lines])
+            ok = all(equal) and all(ls for ls in lines) and all(r[0] == "application/json" for r in card)
+        else:
+            diffs = [int(np.abs(wav_samples(a[1]) - wav_samples(b[1])).max()) if len(a[1]) == len(b[1]) else None
+                     for a, b in zip(card, host)]
+            entry.update(bytes=[len(r[1]) for r in card], max_sample_diff=diffs,
+                         equal_bytes=[a[1] == b[1] for a, b in zip(card, host)])
+            ok = all(r[0] == "audio/wav" for r in card) and all(
+                a[1][:44] == b[1][:44] and len(a[1]) == len(b[1]) > 44 and d is not None and d <= WAVE_TOL
+                for a, b, d in zip(card, host, diffs))
+        report[name] = entry
+        log(f"# cascade {name} " + json.dumps(entry))
+        if not ok:
+            raise AssertionError(f"cascade {name}: the card's responses differ from the CPU run")
+        if counts != want or encodes == 0:
+            raise AssertionError(f"cascade {name}: launches {counts}, expected {want}")
+        kinds = {k.split(":")[0] for k in stats["kinds"]}
+        if not {"whisper_ring", "nllb"} <= kinds or (name == "voice_translate.yml" and "tts_vits" not in kinds):
+            raise AssertionError(f"cascade {name}: batcher kinds {sorted(kinds)}")
+    # the VITS durations of each translated sentence, card against CPU
+    cfg = vits.VitsConfig(sampling_rate=24000)
+    tok = vits.VitsCharTokenizer(VITS_RANDOM_VOCAB)
+    sentences = []
+    for t in texts:
+        sp = SentenceSplitter()
+        sentences += sp.push(t + " ") + sp.flush()
+    durs = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            params = vits.vits_init_params(cfg, device=dev)
+            durs[dev] = []
+            for s in sentences:
+                x = torch.as_tensor(tok.encode(s)[None], device=dev)
+                hidden, _, _ = vits.text_encoder(params, cfg, x)
+                m = torch.ones_like(hidden[..., :1])
+                durs[dev].append(vits.durations(vits.predict_durations(params, cfg, hidden, m), m, 1.0).cpu())
+    equal = [torch.equal(a, b) for a, b in zip(durs["cuda"], durs["cpu"])]
+    report["vits_durations"] = {"sentences": len(sentences), "equal": all(equal),
+                                "frames": [int(d.sum()) for d in durs["cuda"]]}
+    log("# cascade vits durations " + json.dumps(report["vits_durations"]))
+    if not sentences or not all(equal):
+        raise AssertionError(f"cascade: VITS durations differ on the card: {equal}")
+    if not opus:
+        log("# cascade text_to_speech.yml: libopus is absent, so its audio::opus::encoder step does not "
+            "register: not run")
+        return report
+    pipeline = sample_pipeline("text_to_speech.yml")
+    text = b"Hello from the card. This sentence is spoken by the port's text to speech node."
+    out = {}
+    for dev in ("cuda", "cpu"):
+        async def run_tts(dev=dev):
+            batcher = DeviceBatcher(device=dev)
+            res = await oneshot_bytes(node_registry(dev), pipeline, text, batcher=batcher)
+            batcher.stop()
+            return res
+
+        out[dev] = asyncio.run(run_tts())
+    report["text_to_speech.yml"] = {dev: {"content_type": r[0], "bytes": len(r[1]), "wall_s": r[2]}
+                                    for dev, r in out.items()}
+    log("# cascade text_to_speech.yml " + json.dumps(report["text_to_speech.yml"]))
+    if not all(r[1][:4] == b"OggS" and len(r[1]) > 1000 for r in out.values()):
+        raise AssertionError("cascade text_to_speech.yml: no Ogg stream")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1438,6 +1801,9 @@ def main() -> int:
     log(smi)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t_script = time.monotonic()
+    # every f32 comparison on the card runs in full f32 (cuDNN's TF32 is on by default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     build_phase()
     t0 = time.monotonic()
     k1, k2, k3 = k1_phase(), k2_phase(8), k3_phase(8)
@@ -1469,6 +1835,12 @@ def main() -> int:
     asyncio.run(resources.clear())
     torch.cuda.empty_cache()
     t0 = time.monotonic()
+    translate_phase()
+    log(f"# translate phase (NLLB-200-distilled-600M, opus-mt-en-es widths) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    cascade = cascade_phase(opus)
+    log(f"# cascade phase (speech_translate.yml, voice_translate.yml) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     live = live_partials_path()
     log(f"# live-partials path (SttServingEngine) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
@@ -1480,7 +1852,9 @@ def main() -> int:
     ogg_k1 = {label: ogg[label]["launches"]["flash_attention"] for label in ("fused", "unfused") if label in ogg}
     k1.update(launches=seg["flash_attention"], path="oneshot segment finals (WhisperNode)",
               launches_live_captions=captions["flash_attention"], launches_live_partials=live["flash_attention"],
-              launches_ogg_opus=ogg_k1, launches_dynamic_session=dynamic["flash_attention"])
+              launches_ogg_opus=ogg_k1, launches_dynamic_session=dynamic["flash_attention"],
+              launches_speech_translate=cascade["speech_translate.yml"]["launches"]["flash_attention"],
+              launches_voice_translate=cascade["voice_translate.yml"]["launches"]["flash_attention"])
     k2.update(launches=captions["windowed_write"], path="oneshot live captions (WhisperNode)",
               launches_live_partials=live["windowed_write"], launches_dynamic_session=dynamic["windowed_write"])
     k3.update(launches=captions["history_attention"], path="oneshot live captions (WhisperNode)",

@@ -1,15 +1,32 @@
 # SPDX-License-Identifier: Apache-2.0
-"""ML nodes ported so far: VAD and Whisper STT, on the registering device."""
+"""ML nodes ported so far: VAD, Whisper STT, NLLB and Marian translation, and
+the VITS / FastSpeech TTS node, on the registering device."""
 
 from ...device import resolve_device
 
 
 def register_ml_nodes(registry, *, device=None) -> None:
-    """Register the VAD and Whisper kinds; their nodes run on ``device``
-    (default ``cuda``, which raises without a card)."""
+    """Register the ML kinds; their nodes run on ``device`` (default
+    ``cuda``, which raises without a card)."""
+    from .marian_node import MarianTranslateNode
+    from .translate_node import TranslateNode
+    from .tts_node import TtsNode
     from .vad_node import VadNode
     from .whisper_node import WhisperNode
 
     dev = resolve_device(device)
     registry.register(VadNode.KIND, lambda p: VadNode(p, device=dev), "Voice activity detection (device kernel)")
     registry.register(WhisperNode.KIND, lambda p: WhisperNode(p, device=dev), "Whisper speech-to-text (device model)")
+    registry.register(TranslateNode.KIND, lambda p: TranslateNode(p, device=dev), "NLLB text translation (device model)")
+    registry.register(
+        MarianTranslateNode.KIND,
+        lambda p: MarianTranslateNode(p, device=dev),
+        "Helsinki opus-mt (Marian) translation (device model)",
+    )
+    registry.register(TtsNode.KIND, lambda p: TtsNode(p, device=dev), "Kokoro-class streaming TTS (device model)")
+    # piper: the VITS stack is piper's architecture (TtsNode vits backend)
+    registry.register(
+        "plugin::native::piper",
+        lambda p: TtsNode(p, device=dev),
+        "Piper (VITS) streaming TTS (device model)",
+    )

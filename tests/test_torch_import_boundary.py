@@ -49,7 +49,13 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.engine.slots
     import streamkit_tpu_torch.engine.stt_serving
     import streamkit_tpu_torch.models
+    import streamkit_tpu_torch.models.marian
+    import streamkit_tpu_torch.models.nllb
+    import streamkit_tpu_torch.models.seq2seq
     import streamkit_tpu_torch.models.silero_vad
+    import streamkit_tpu_torch.models.sp_tokenizer
+    import streamkit_tpu_torch.models.tts
+    import streamkit_tpu_torch.models.vits
     import streamkit_tpu_torch.models.whisper
     import streamkit_tpu_torch.models.whisper.config
     import streamkit_tpu_torch.models.whisper.decode
@@ -69,6 +75,10 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.nodes.core_nodes.telemetry_nodes
     import streamkit_tpu_torch.nodes.core_nodes.text
     import streamkit_tpu_torch.nodes.ml
+    import streamkit_tpu_torch.nodes.ml._text_batching
+    import streamkit_tpu_torch.nodes.ml.marian_node
+    import streamkit_tpu_torch.nodes.ml.translate_node
+    import streamkit_tpu_torch.nodes.ml.tts_node
     import streamkit_tpu_torch.nodes.ml.vad_node
     import streamkit_tpu_torch.nodes.ml.whisper_node
     import streamkit_tpu_torch.ops
@@ -104,6 +114,17 @@ _SCRIPT = textwrap.dedent(
         from streamkit_tpu_torch.nodes import register_nodes
         from streamkit_tpu_torch.nodes.ml.vad_node import VadNode
         from streamkit_tpu_torch.nodes.ml.whisper_node import WhisperNode
+        from streamkit_tpu_torch.models.nllb import NllbConfig, nllb_init_params
+        from streamkit_tpu_torch.models.marian import MarianConfig, marian_init_params
+        from streamkit_tpu_torch.models.vits import VitsConfig, vits_init_params
+        from streamkit_tpu_torch.models.tts import (
+            AcousticConfig, HifiGanConfig, acoustic_init_params, hifigan_init_params,
+        )
+        from streamkit_tpu_torch.nodes.ml._text_batching import BucketedGreedy
+        from streamkit_tpu_torch.nodes.ml.marian_node import MarianTranslateNode
+        from streamkit_tpu_torch.nodes.ml.translate_node import TranslateNode
+        from streamkit_tpu_torch.nodes.ml.tts_node import TtsNode
+        small = dict(d_model=8, encoder_layers=1, decoder_layers=1, heads=2, ffn_dim=8, max_positions=8)
 
         for name, call in [
             ("init_params", lambda: init_params(WHISPER_CONFIGS["tiny"])),
@@ -121,6 +142,17 @@ _SCRIPT = textwrap.dedent(
             ("GainNode", lambda: GainNode(None)),
             ("ResamplerNode", lambda: ResamplerNode(None)),
             ("MixerNode", lambda: MixerNode(None)),
+            ("nllb_init_params", lambda: nllb_init_params(NllbConfig(vocab_size=8, **small))),
+            ("marian_init_params", lambda: marian_init_params(MarianConfig(vocab_size=8, pad_token_id=7,
+                                                                           decoder_start_token_id=7, **small))),
+            ("vits_init_params", lambda: vits_init_params(VitsConfig(hidden_size=8, ffn_dim=8, flow_size=8,
+                                                                     upsample_initial_channel=16))),
+            ("acoustic_init_params", lambda: acoustic_init_params(AcousticConfig(d_model=8, heads=2))),
+            ("hifigan_init_params", lambda: hifigan_init_params(HifiGanConfig(upsample_initial_channel=16))),
+            ("BucketedGreedy", lambda: BucketedGreedy("tag", 8, 1, None)),
+            ("TranslateNode", lambda: TranslateNode(None)),
+            ("MarianTranslateNode", lambda: MarianTranslateNode(None)),
+            ("TtsNode", lambda: TtsNode(None)),
         ]:
             try:
                 call()

@@ -536,3 +536,56 @@ def test_engine_and_node_have_equal_parameters_on_cuda():
     assert eng_sd.keys() == node_sd.keys() and len(eng_sd) > 10
     for k in eng_sd:
         assert eng_sd[k].device.type == "cuda" and torch.equal(eng_sd[k], node_sd[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [1, 4])
+def test_nllb_step_and_decode_on_cuda_match_cpu(beam):
+    """A small NLLB at f32 (the translate node's random configuration): the
+    cached decode step's logits on the card within 1e-4 of the CPU's, and
+    greedy / beam-4 tokens and lengths equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from streamkit_tpu_torch.models import nllb
+    from streamkit_tpu_torch.nodes.ml.translate_node import RANDOM_INIT_CONFIG as cfg
+
+    out = {}
+    src = torch.randint(4, 260, (3, 16), generator=torch.Generator().manual_seed(0))
+    src[1, 9:] = cfg.pad_token_id
+    for dev in ("cpu", "cuda"):
+        params = nllb.nllb_init_params(cfg, 0, device=dev)
+        enc, bias = nllb.nllb_encode(params, cfg, src.to(dev))
+        cache = nllb._nllb_init_cache(params, cfg, enc, 4)
+        logits, _ = nllb.nllb_decode_step(params, cfg, torch.full((3,), 2, device=dev), 0, cache, bias)
+        if beam == 1:
+            toks, lens = nllb.nllb_greedy_cached(params, cfg, src.to(dev), 3, max_tokens=16)
+        else:
+            toks, lens = nllb.nllb_beam_translate(params, cfg, src.to(dev), 3, max_tokens=16, beam=beam)
+        out[dev] = (logits.cpu(), toks.cpu(), lens.cpu())
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-4
+    assert torch.equal(out["cuda"][1], out["cpu"][1]) and torch.equal(out["cuda"][2], out["cpu"][2])
+
+
+@pytest.mark.cuda
+def test_vits_synthesize_on_cuda_matches_cpu():
+    """facebook/mms-tts-eng's widths (the TTS node's random VITS at 24 kHz)
+    at f32: equal durations and valid lengths on the card and the CPU, the
+    waveform within 1e-3 (cuDNN's convolutions, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from streamkit_tpu_torch.models import vits
+    from streamkit_tpu_torch.nodes.ml.tts_node import VITS_RANDOM_VOCAB
+
+    cfg = vits.VitsConfig(sampling_rate=24000)
+    ids = vits.VitsCharTokenizer(VITS_RANDOM_VOCAB).encode("hello there, this is a test of the voice.")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = vits.vits_init_params(cfg, device=dev)
+        x = torch.as_tensor(ids[None], device=dev)
+        hidden, _, _ = vits.text_encoder(params, cfg, x)
+        m = torch.ones_like(hidden[..., :1])
+        dur = vits.durations(vits.predict_durations(params, cfg, hidden, m), m, 1.0)
+        wave, n = vits.synthesize(params, cfg, x, max_frames=256)
+        out[dev] = (dur.cpu(), wave.cpu(), n.cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0]) and torch.equal(out["cuda"][2], out["cpu"][2])
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-3

@@ -327,3 +327,85 @@ def test_resampler_frame_sizes_follow_the_target_rate(registries, target):
     if target == 16000:
         assert outcome("torch", params["output_frame_size"]) == "ok"
         assert outcome("jax", params["output_frame_size"]) == "ConfigurationError"
+
+
+# -- the cascade samples: Whisper → NLLB (→ VITS) -------------------------------------
+def run_with_batcher(pkg, registries, doc, body, batched):
+    """One request through ``pkg``'s registry and oneshot engine, with a
+    ``DeviceBatcher`` started inside the run when ``batched`` → (content
+    type, response bytes, batcher kinds or None)."""
+    api, _, engine, _ = PACKAGES[pkg]
+    pipeline = api.compile_pipeline_dict(doc)
+
+    async def main():
+        batcher = None
+        if batched:
+            if pkg == "torch":
+                batcher = engine.DeviceBatcher(tick_ms=5.0, device="cpu")
+            else:
+                from streamkit_tpu.engine.batcher import DeviceBatcher
+
+                batcher = DeviceBatcher(tick_ms=5.0)
+            batcher.start()
+
+        async def stream():
+            yield body
+
+        result = await engine.run_oneshot_pipeline(registries[pkg], pipeline, input_stream=stream(), batcher=batcher)
+        out = await result.read_all()
+        kinds = None
+        if batcher is not None:
+            kinds = batcher.stats()["kinds"]
+            batcher.stop()
+        return result.content_type, out, kinds
+
+    return asyncio.run(main())
+
+
+def cascade_doc(name: str, hf_dir: str) -> dict:
+    """A cascade sample as written, its whisper step pointed at one HF
+    checkpoint at f32 (the random ``tiny`` of each package differs; NLLB
+    and VITS without a checkpoint are the reference's own random models in
+    both)."""
+    return sample_doc(name, **{"plugin::native::whisper": {"model_path": hf_dir, "dtype": "float32",
+                                                            "max_tokens": 8}})
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["direct", "batcher"])
+def test_speech_translate_sample_lines_equal_jax(registries, hf_dir, batched):  # noqa: F811
+    """``speech_translate.yml`` (WAV → Whisper → NLLB → NDJSON): equal
+    response bytes from both packages, with and without a batcher (then the
+    translation runs as the batcher's ``nllb:`` kind)."""
+    from test_torch_whisper_node import speech_wav
+
+    doc = cascade_doc("speech_translate.yml", hf_dir)
+    body = speech_wav(secs=3, speech_secs=1)
+    ct_j, out_j, _ = run_with_batcher("jax", registries, doc, body, batched)
+    ct_t, out_t, kinds = run_with_batcher("torch", registries, doc, body, batched)
+    assert ct_t == ct_j == "application/json"
+    lines = [json.loads(x) for x in out_t.decode().splitlines() if x.strip()]
+    assert lines and all(set(x) == {"Text"} for x in lines)
+    assert out_t == out_j
+    if batched:
+        assert any(k.startswith("nllb:") for k in kinds), kinds
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["direct", "batcher"])
+def test_voice_translate_sample_audio_equal_jax(registries, hf_dir, batched):  # noqa: F811
+    """``voice_translate.yml`` (WAV → Whisper → NLLB → VITS at 24 kHz → WAV):
+    the same header and length (so the same VITS durations) from both
+    packages, every 16-bit sample within one step (f32 synthesis in two
+    libraries, rounded to 16 bits), with and without a batcher (then NLLB
+    and VITS run as the batcher's ``nllb:`` and ``tts_vits:`` kinds)."""
+    from test_torch_whisper_node import speech_wav
+
+    doc = cascade_doc("voice_translate.yml", hf_dir)
+    body = speech_wav(secs=3, speech_secs=1)
+    ct_j, out_j, _ = run_with_batcher("jax", registries, doc, body, batched)
+    ct_t, out_t, kinds = run_with_batcher("torch", registries, doc, body, batched)
+    assert ct_t == ct_j == "audio/wav"
+    assert len(out_t) == len(out_j) > 44 + 24000 // 10 and out_t[:44] == out_j[:44]
+    diff = np.abs(np.frombuffer(out_t[44:], "<i2").astype(np.int32) - np.frombuffer(out_j[44:], "<i2"))
+    assert diff.max() <= 1
+    if batched:
+        assert any(k.startswith("nllb:") for k in kinds) and any(k.startswith("tts_vits:") for k in kinds), kinds

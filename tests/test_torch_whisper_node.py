@@ -279,14 +279,19 @@ def test_ml_nodes_need_a_device():
         pytest.skip("a card is present: the default device resolves")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_nodes.register_nodes(reg)
+    from streamkit_tpu_torch.nodes.ml.marian_node import MarianTranslateNode
+    from streamkit_tpu_torch.nodes.ml.translate_node import TranslateNode
+    from streamkit_tpu_torch.nodes.ml.tts_node import TtsNode
     from streamkit_tpu_torch.nodes.ml.vad_node import VadNode
     from streamkit_tpu_torch.nodes.ml.whisper_node import WhisperNode
 
-    for cls in (VadNode, WhisperNode):
+    for cls in (VadNode, WhisperNode, TranslateNode, MarianTranslateNode, TtsNode):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(None)
     torch_nodes.register_nodes(reg, device="cpu")
-    assert reg.create_node("plugin::native::whisper").device == torch.device("cpu")
+    for kind in ("plugin::native::whisper", "plugin::native::nllb", "plugin::native::helsinki",
+                 "plugin::native::kokoro", "plugin::native::piper"):
+        assert reg.create_node(kind).device == torch.device("cpu")
 
 
 # -- registry -----------------------------------------------------------------
@@ -298,7 +303,8 @@ PORT_KINDS = [
     "audio::gain", "audio::mixer", "audio::pacer", "audio::resampler", "containers::ogg::demuxer",
     "containers::ogg::muxer", "containers::wav::demuxer", "containers::wav::muxer", "core::file_reader",
     "core::file_writer", "core::json_serialize", "core::pacer", "core::passthrough", "core::sink",
-    "core::telemetry_out", "core::telemetry_tap", "core::text_chunker", "plugin::native::vad",
+    "core::telemetry_out", "core::telemetry_tap", "core::text_chunker", "plugin::native::helsinki",
+    "plugin::native::kokoro", "plugin::native::nllb", "plugin::native::piper", "plugin::native::vad",
     "plugin::native::whisper", "streamkit::http_input", "streamkit::http_output",
 ]
 OPUS_KINDS = ["audio::opus::decoder", "audio::opus::encoder"]  # where libopus loads
