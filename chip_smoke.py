@@ -93,9 +93,22 @@
    and 16-bit samples within ``WAVE_TOL``, the VITS durations of every
    translated sentence equal; K1 4 per Whisper-tiny encode.
    ``text_to_speech.yml`` runs only where libopus loads (its Opus encoder).
+13. Speech models (``# speech models``), random weights, through the
+   port's registry and nodes with one ``DeviceBatcher`` per path: Kokoro
+   (the golden pack, hidden 512) in ``text_to_speech.yml``'s graph, its
+   Opus encoder and Ogg muxer a WAV muxer where libopus is absent, 8
+   concurrent requests of 2–4 sentences; Matcha at ``MatchaConfig()`` with
+   ``HifiGanConfig()`` (16 rows × 512 frames, one call profiled) and the
+   node in 4 concurrent requests; SenseVoice at ``SenseVoiceConfig()``
+   (50 layers, bf16) through a config-only ``sensevoice.npz``, 8
+   concurrent WAV requests, one 8 × 20 s forward profiled. At f32 on the
+   card against the CPU: Kokoro's durations equal and audio within
+   ``KOKORO_ATOL``, Matcha's frame counts equal and mel within
+   ``MEL_ATOL``, SenseVoice's CTC ids of 2 clips equal. K1–K3 launch 0
+   times there.
 
 Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9,
-11, 12) and read just after; each must equal what the code implies (K1: 32
+11, 12, 13) and read just after; each must equal what the code implies (K1: 32
 per encode of 256 or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one for the
 encoder caches and their scales and one for the two decoder folds; K3: 32
 per fused step call). Every batcher kind these paths dispatch is registered
@@ -1791,6 +1804,295 @@ def cascade_phase(opus: bool) -> dict:
         raise AssertionError("cascade text_to_speech.yml: no Ogg stream")
     return report
 
+# ---------------------------------------------------------------------------
+# 10. speech models at full width: Kokoro, Matcha and SenseVoice
+# ---------------------------------------------------------------------------
+KOKORO_DIR = os.path.join(SAMPLES, "kokoro-golden")
+KOKORO_ATOL = 1e-4  # f32 audio, card against CPU: cuDNN's and the CPU's convolutions, 4 LSTM scans
+MEL_ATOL = 1e-3  # f32 mel (peaks near 6) after 10 Euler steps, card against CPU
+ZERO_LAUNCHES = {"flash_attention": 0, "windowed_write": 0, "history_attention": 0}
+
+
+def kokoro_texts(n: int = 8) -> list:
+    """``n`` request bodies of 2–4 sentences each, from seed 0, in the
+    golden pack's characters; every third sentence is long enough (16
+    words) to need more than the 512 frames the reference keeps."""
+    rng = np.random.RandomState(0)
+    words = ("the a speech card stream model voice sentence audio port style frame hello world quick brown fox "
+             "jumps over lazy dog").split()
+    out = []
+    for i in range(n):
+        sents = [" ".join(words[rng.randint(len(words))] for _ in range(16 if (i + j) % 3 == 0 else 4))
+                 .capitalize() + "." for j in range(2 + i % 3)]
+        out.append(" ".join(sents).encode())
+    return out
+
+
+def speech_pipeline(opus: bool):
+    """``text_to_speech.yml``'s graph with the golden pack as the kokoro
+    step's model dir; without libopus its Opus encoder and Ogg muxer become
+    a WAV muxer."""
+    import yaml
+
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+
+    with open(os.path.join(SAMPLES, "pipelines", "system", "text_to_speech.yml")) as f:
+        doc = yaml.safe_load(f)
+    steps = []
+    for step in doc["steps"]:
+        if step["kind"] == "plugin::native::kokoro":
+            step["params"] = dict(step.get("params") or {}, model_dir=KOKORO_DIR)
+        if not opus and step["kind"] == "audio::opus::encoder":
+            step = {"kind": "containers::wav::muxer"}
+        elif not opus and step["kind"] == "containers::ogg::muxer":
+            continue
+        steps.append(step)
+    doc["steps"] = steps
+    return compile_pipeline_dict(doc)
+
+
+def concurrent_requests(registry, pipeline, bodies, warm: bytes):
+    """A warm request (it loads the model and registers the batcher kinds),
+    then every body as its own oneshot request at once through one
+    ``DeviceBatcher`` and one ``ResourceManager``, the kernel counts set to
+    0 just before → (responses, wall s, launches, batcher stats)."""
+    from streamkit_tpu_torch.core import ResourceManager
+    from streamkit_tpu_torch.engine import DeviceBatcher
+
+    async def run():
+        resources = ResourceManager()
+        warm_batcher = DeviceBatcher(device="cuda")
+        await oneshot_bytes(registry, pipeline, warm, resources, warm_batcher)
+        warm_batcher.stop()
+        batcher = DeviceBatcher(device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.monotonic()
+        res = await asyncio.gather(*(oneshot_bytes(registry, pipeline, b, resources, batcher) for b in bodies))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        batcher.stop()
+        await resources.clear()
+        return res, wall, counts, batcher.stats()
+
+    return asyncio.run(run())
+
+
+def kind_summary(stats: dict, prefix: str) -> dict:
+    calls = kind_calls(stats, prefix)
+    items = sum(v["items"] for k, v in stats["kinds"].items() if k.startswith(prefix))
+    return {"calls": calls, "items": items, "mean_batch": items / calls if calls else 0.0}
+
+
+def kokoro_path(opus: bool) -> dict:
+    """Kokoro through ``text_to_speech.yml``'s graph (the golden pack:
+    hidden 512, style 256, 2 voices, 32 tokens; random from ``PRNGKey(0)``):
+    8 concurrent requests of 2–4 sentences after a warm one; one
+    ``kokoro_core`` call profiled; durations and audio at f32 on the card
+    against the CPU."""
+    from streamkit_tpu_torch.models import kokoro
+
+    registry = node_registry("cuda")
+    pipeline = speech_pipeline(opus)
+    bodies = kokoro_texts()
+    res, wall, counts, stats = concurrent_requests(registry, pipeline, bodies, b"A warm request. It loads the model.")
+    ctype = "audio/ogg" if opus else "audio/wav"
+    report = {"requests": len(bodies), "wall_s": wall, "request_wall_s": [r[2] for r in res], "bytes": [len(r[1]) for r in res],
+              "launches": counts, "kokoro_dur": kind_summary(stats, "kokoro_dur:"),
+              "kokoro_core": kind_summary(stats, "kokoro_core:")}
+    if opus:
+        ok = all(r[0] == ctype and r[1][:4] == b"OggS" and len(r[1]) > 8000 for r in res)
+    else:  # 16-bit samples at 48 kHz: at least 1 s of sound each, none silent
+        ok = all(r[0] == ctype and len(r[1]) > 44 + 96000 and np.abs(wav_samples(r[1])).max() > 0 for r in res)
+    # f32, card against CPU: one batch of four sentences in the 64-token
+    # bucket, the first needing 760 frames (cut to 512) with random weights
+    cfg, cpu, tokens, voices = kokoro.load_kokoro_dir(KOKORO_DIR, device="cpu")
+    card = tree_to(cpu, "cuda")
+    sentences = ["hello there, this is a test of kokoro.", "the quick brown fox", "hello world, a frame.", "a"]
+    ids = [tokens.encode(s) for s in sentences]
+    tok, mask = (np.stack(a) for a in zip(*(kokoro.kokoro_token_row(i, cfg) for i in ids)))
+    style = np.stack([voices[0][min(len(i), voices.shape[1] - 1)] for i in ids]).astype(np.float32)
+    out = {}
+    with torch.inference_mode():
+        for dev, params in (("cuda", card), ("cpu", cpu)):
+            args = [torch.as_tensor(a, device=dev) for a in (tok, mask, style)]
+            dur = kokoro.kokoro_durations_batch(params, cfg, *args).cpu()
+            fr = [kokoro.kokoro_frames(dur[r].numpy(), len(i), 1.0) for r, i in enumerate(ids)]
+            f_pad = max(len(f[0]) for f in fr)
+            fi = np.stack([np.pad(f[0], (0, f_pad - len(f[0]))) for f in fr])
+            fm = np.stack([np.pad(f[1], (0, f_pad - len(f[1]))) for f in fr])
+            core = [torch.as_tensor(a, device=dev) for a in (fi, fm)]
+            audio, _ = kokoro.kokoro_core_batch(params, cfg, *args, *core, f_pad)
+            out[dev] = (dur, audio.cpu(), [f[2] for f in fr])
+            if dev == "cuda":
+                report["core_call"] = dict(rows=len(ids), t_pad=tok.shape[1], f_pad=f_pad, **profile_call(
+                    lambda: kokoro.kokoro_core_batch(params, cfg, *args, *core, f_pad), kokoro, "_bilstm"))
+    diff = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    report.update(f32_durations_equal=bool(torch.equal(out["cuda"][0], out["cpu"][0])), f32_max_abs_err=diff,
+                  f32_frames=out["cpu"][2], f32_tol=KOKORO_ATOL)
+    log("# speech models kokoro " + json.dumps(report))
+    if not ok:
+        raise AssertionError(f"kokoro: bad responses {[(r[0], len(r[1])) for r in res]}")
+    if counts != ZERO_LAUNCHES or report["kokoro_core"]["calls"] == 0 or report["kokoro_dur"]["calls"] == 0:
+        raise AssertionError(f"kokoro: launches {counts}, batcher {stats['kinds'].keys()}")
+    if not report["f32_durations_equal"] or not diff <= KOKORO_ATOL or max(out["cpu"][2]) != 512:
+        raise AssertionError(f"kokoro: the card's f32 run differs from the CPU's ({diff})")
+    return report
+
+
+def matcha_path() -> dict:
+    """Matcha at its published widths (``MatchaConfig()``: d 192, 2 heads, 6
+    encoder layers, ffn 768, 80 mels, decoder 256 × 4 blocks, 10 Euler
+    steps) and ``HifiGanConfig()``, random from seed 0: one call of
+    ``matcha_synthesize_mel`` + ``hifigan_generate`` at 16 rows × 64 tokens
+    (512 frames) profiled, mel and frame counts of 2 rows at f32 on the card
+    against the CPU; then the node (its own small random model) in 4
+    concurrent requests through one batcher."""
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+    from streamkit_tpu_torch.models import matcha
+    from streamkit_tpu_torch.models.tts import HifiGanConfig, hifigan_generate, hifigan_init_params
+
+    cfg, vcfg = matcha.MatchaConfig(), HifiGanConfig()
+    cpu = matcha.matcha_init_params(cfg, 0, device="cpu")
+    card, vcard = tree_to(cpu, "cuda"), hifigan_init_params(vcfg, 0, device="cuda")
+    texts = translate_texts(16)
+    ids = np.zeros((16, 64), np.int32)
+    mask = np.zeros((16, 64), np.float32)
+    for r, t in enumerate(texts):
+        b = np.frombuffer(t.encode()[:64], np.uint8) % cfg.vocab_size
+        ids[r, : len(b)], mask[r, : len(b)] = b, 1.0
+    ids_c, mask_c = torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda")
+
+    def call():
+        mel, n = matcha.matcha_synthesize_mel(card, cfg, ids_c, 512, mask=mask_c)
+        return hifigan_generate(vcard, vcfg, mel), n
+
+    report = {"config": cfg.__dict__, "params": sum(t.numel() for t in tree_leaves(card)), "rows": 16, "frames": 512}
+    with torch.inference_mode():
+        audio, n = call()  # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        report["call"] = profile_call(call, matcha, "_velocity")
+        report["launches"] = read_counts()
+        ok = bool(torch.isfinite(audio).all()) and audio.shape == (16, 512 * 256) and int(n.min()) > 0
+        got = [matcha.matcha_synthesize_mel(p, cfg, torch.as_tensor(ids[:2], device=d), 512,
+                                            mask=torch.as_tensor(mask[:2], device=d))
+               for p, d in ((card, "cuda"), (cpu, "cpu"))]
+    diff = float((got[0][0].cpu() - got[1][0]).abs().max())
+    report.update(n_frames=n.cpu().tolist(), f32_frames_equal=bool(torch.equal(got[0][1].cpu(), got[1][1])),
+                  f32_mel_max_abs_err=diff, f32_tol=MEL_ATOL)
+    # the node: 4 concurrent requests through the registry and one batcher
+    pipeline = compile_pipeline_dict({"mode": "oneshot", "steps": [
+        {"kind": "streamkit::http_input"}, {"kind": "core::text_chunker", "params": {"min_length": 10}},
+        {"kind": "plugin::native::matcha"}, {"kind": "containers::wav::muxer"}, {"kind": "streamkit::http_output"}]})
+    bodies = [t.encode() for t in translate_texts(4)]
+    res, wall, counts, stats = concurrent_requests(node_registry("cuda"), pipeline, bodies, b"A warm request.")
+    report["node"] = {"requests": len(bodies), "wall_s": wall, "bytes": [len(r[1]) for r in res], "launches": counts,
+                      "matcha": kind_summary(stats, "matcha:")}
+    log("# speech models matcha " + json.dumps(report))
+    if not ok or not all(r[0] == "audio/wav" and len(r[1]) > 44 + 22050 for r in res):
+        raise AssertionError("matcha: bad audio")
+    if report["launches"] != ZERO_LAUNCHES or counts != ZERO_LAUNCHES or report["node"]["matcha"]["calls"] == 0:
+        raise AssertionError(f"matcha: launches {report['launches']} / {counts}, batcher {stats['kinds'].keys()}")
+    if not report["f32_frames_equal"] or not diff <= MEL_ATOL:
+        raise AssertionError(f"matcha: the card's f32 mel differs from the CPU's ({diff})")
+    return report
+
+
+def sensevoice_path() -> dict:
+    """SenseVoice at its published widths (``SenseVoiceConfig()``: d 512, 4
+    heads, 50 layers, ffn 2048, vocab 25055, 80 mels, LFR 7/6), random from
+    seed 0, bf16, through a model dir holding a config-only
+    ``sensevoice.npz``: ``speech_8s.wav`` and 7 synthetic clips of 6–20 s as
+    concurrent oneshot requests (WAV → sensevoice → JSON) through one
+    batcher; one batched forward at 8 × 20 s profiled; the CTC ids of 2
+    clips at f32 on the card against the CPU."""
+    import dataclasses
+    import tempfile
+
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+    from streamkit_tpu_torch.models import sensevoice as sv
+    from streamkit_tpu_torch.ops.mel import log_mel_spectrogram
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    cfg = sv.SenseVoiceConfig()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "streamkit_tpu_torch", "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    clips = [synth_speech(float(s), seed=40 + i) for i, s in enumerate(np.linspace(6, 20, 7))]
+    with open(os.path.join(SAMPLES, "media", "speech_8s.wav"), "rb") as f:
+        bodies = [f.read()] + [wav_body(c) for c in clips]
+    report = {"config": dataclasses.asdict(cfg), "clip_s": [8.0] + [len(c) / SR for c in clips]}
+    with tempfile.TemporaryDirectory(dir=build_dir) as model_dir:
+        np.savez(os.path.join(model_dir, "sensevoice.npz"), config=np.asarray(dataclasses.asdict(cfg), dtype=object))
+        pipeline = compile_pipeline_dict({"mode": "oneshot", "steps": [
+            {"kind": "streamkit::http_input"}, {"kind": "containers::wav::demuxer"},
+            {"kind": "plugin::native::sensevoice", "params": {"model_dir": model_dir, "language": "en"}},
+            {"kind": "core::json_serialize", "params": {"newline_delimited": True}},
+            {"kind": "streamkit::http_output", "params": {"content_type": "application/json"}}]})
+        res, wall, counts, stats = concurrent_requests(node_registry("cuda"), pipeline, bodies,
+                                                       wav_body(synth_speech(2.0, seed=39)))
+    lines = [[json.loads(x)["Transcription"] for x in r[1].decode().splitlines() if x.strip()] for r in res]
+    report.update(requests=len(bodies), wall_s=wall, request_wall_s=[r[2] for r in res], launches=counts,
+                  segments=[len(ls) for ls in lines], sensevoice=kind_summary(stats, "sensevoice:"))
+    ok = all(r[0] == "application/json" and ls and all(t["language"] == "en" for t in ls)
+             for r, ls in zip(res, lines))
+    # one batched forward at 8 × 20 s (bf16, the node's dtype), profiled
+    cpu = sv.sensevoice_params_from_numpy(sv.sensevoice_init_numpy(cfg, 0), cfg, device="cpu")
+    bf16 = tree_to(cpu, "cuda", torch.bfloat16)
+    report["params"] = sum(t.numel() for t in tree_leaves(cpu))
+    audio = torch.as_tensor(np.stack([synth_speech(20.0, seed=60 + i)[: 20 * SR] for i in range(8)]), device="cuda")
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(audio, cfg.n_mels)
+        t_lfr = (mel.shape[1] + cfg.lfr_n - 1) // cfg.lfr_n
+        mask = torch.ones(8, t_lfr, device="cuda")
+        lang = torch.full((8,), sv.LANGUAGES["en"], dtype=torch.int32, device="cuda")
+        forward = lambda: sv.sensevoice_logits(bf16, cfg, mel, mask, lang, torch.ones_like(lang))  # noqa: E731
+        forward()
+        torch.cuda.synchronize()
+        reset_counts()
+        report["forward_8x20s"] = dict(t_lfr=t_lfr, **profile_call(forward, sv, "_fsmn"))
+        report["forward_launches"] = read_counts()
+        del bf16
+        # f32 CTC ids of 2 clips (6 s and 8.3 s), card against CPU
+        card = tree_to(cpu, "cuda")
+        ids = {}
+        for dev, params in (("cuda", card), ("cpu", cpu)):
+            ids[dev] = []
+            for c in clips[:2]:
+                m = log_mel_spectrogram(torch.as_tensor(c[None], device=dev), cfg.n_mels)
+                n = (m.shape[1] + cfg.lfr_n - 1) // cfg.lfr_n
+                one = torch.ones(1, dtype=torch.int32, device=dev)
+                logits = sv.sensevoice_logits(params, cfg, m, torch.ones(1, n, device=dev), 2 * one, one)
+                ids[dev] += sv.ctc_collapse(logits[:, 2:].argmax(-1).cpu().numpy(), np.ones((1, n), bool))
+    del card, cpu
+    torch.cuda.empty_cache()
+    report.update(f32_ids_equal=ids["cuda"] == ids["cpu"], f32_ids_lengths=[len(x) for x in ids["cuda"]])
+    log("# speech models sensevoice " + json.dumps(report))
+    if not ok:
+        raise AssertionError(f"sensevoice: bad responses {report['segments']}")
+    if counts != ZERO_LAUNCHES or report["forward_launches"] != ZERO_LAUNCHES or report["sensevoice"]["calls"] == 0:
+        raise AssertionError(f"sensevoice: launches {counts}, batcher {stats['kinds'].keys()}")
+    if not report["f32_ids_equal"]:
+        raise AssertionError("sensevoice: the card's f32 CTC ids differ from the CPU's")
+    return report
+
+
+def speech_phase(opus: bool) -> dict:
+    """The three speech-model paths; ``launches`` sums each kernel's
+    launches over them (each path counts from 0 and must see none)."""
+    out = {"launches": dict(ZERO_LAUNCHES)}
+    for name, fn in (("kokoro", lambda: kokoro_path(opus)), ("matcha", matcha_path), ("sensevoice", sensevoice_path)):
+        t0 = time.monotonic()
+        out[name] = fn()
+        log(f"# speech models {name} wall {time.monotonic() - t0:.1f} s")
+        for counts in (out[name]["launches"], out[name].get("node", {}).get("launches", {}),
+                       out[name].get("forward_launches", {})):
+            for k, v in counts.items():
+                out["launches"][k] += v
+        torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1841,6 +2143,9 @@ def main() -> int:
     cascade = cascade_phase(opus)
     log(f"# cascade phase (speech_translate.yml, voice_translate.yml) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
+    speech = speech_phase(opus)
+    log(f"# speech models phase (Kokoro, Matcha, SenseVoice) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
     live = live_partials_path()
     log(f"# live-partials path (SttServingEngine) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
@@ -1854,12 +2159,15 @@ def main() -> int:
               launches_live_captions=captions["flash_attention"], launches_live_partials=live["flash_attention"],
               launches_ogg_opus=ogg_k1, launches_dynamic_session=dynamic["flash_attention"],
               launches_speech_translate=cascade["speech_translate.yml"]["launches"]["flash_attention"],
-              launches_voice_translate=cascade["voice_translate.yml"]["launches"]["flash_attention"])
+              launches_voice_translate=cascade["voice_translate.yml"]["launches"]["flash_attention"],
+              launches_speech_models=speech["launches"]["flash_attention"])
     k2.update(launches=captions["windowed_write"], path="oneshot live captions (WhisperNode)",
-              launches_live_partials=live["windowed_write"], launches_dynamic_session=dynamic["windowed_write"])
+              launches_live_partials=live["windowed_write"], launches_dynamic_session=dynamic["windowed_write"],
+              launches_speech_models=speech["launches"]["windowed_write"])
     k3.update(launches=captions["history_attention"], path="oneshot live captions (WhisperNode)",
               launches_live_partials=live["history_attention"],
-              launches_dynamic_session=dynamic["history_attention"])
+              launches_dynamic_session=dynamic["history_attention"],
+              launches_speech_models=speech["launches"]["history_attention"])
     log(f"# whole script {time.monotonic() - t_script:.1f} s")
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(smi)

@@ -1,11 +1,12 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Device model families ported so far: Whisper STT, the learned VAD, NLLB and
-Marian translation, VITS and the FastSpeech + HiFi-GAN TTS stack."""
+"""Device model families of the port: Whisper STT, the learned VAD, NLLB and
+Marian translation, VITS, the FastSpeech + HiFi-GAN TTS stack, Kokoro,
+Matcha and SenseVoice."""
 
 import numpy as np
 import torch
 
-__all__ = ["params_to_torch"]
+__all__ = ["params_to_torch", "override_leaves"]
 
 
 def params_to_torch(tree, dtype: torch.dtype, device, keep_f32=()):
@@ -25,3 +26,19 @@ def params_to_torch(tree, dtype: torch.dtype, device, keep_f32=()):
         return x
 
     return conv(tree)
+
+
+def override_leaves(tree, flat, what: str, prefix: str = ""):
+    """Leaves of ``tree`` (numpy, the reference's layout) replaced by the
+    arrays of ``flat`` under their '/'-joined paths where present, each
+    checked against the leaf's shape; ``what`` names the file in errors."""
+    if isinstance(tree, dict):
+        return {k: override_leaves(v, flat, what, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [override_leaves(v, flat, what, f"{prefix}/{i}") for i, v in enumerate(tree)]
+    if prefix in flat:
+        arr = np.asarray(flat[prefix], np.float32)
+        if arr.shape != tuple(tree.shape):
+            raise ValueError(f"{what}[{prefix}] shape {arr.shape} != {tuple(tree.shape)}")
+        return arr
+    return tree

@@ -4,9 +4,9 @@
 The kinds ported so far: the oneshot roles, passthrough and sink, file
 reader and writer, the pacers, the text and telemetry nodes, the WAV and
 Ogg container pairs, the audio filters (gain, resampler, mixer), the Opus
-codec pair where libopus loads, and the ML nodes (VAD, Whisper, NLLB and
-Marian translation, the VITS / FastSpeech TTS node as ``kokoro`` and
-``piper``). Each kind has the name, description and pins of the JAX
+codec pair where libopus loads, and the ML nodes (VAD, Whisper and
+SenseVoice STT, NLLB and Marian translation, the Kokoro / VITS / FastSpeech
+TTS node as ``kokoro`` and ``piper``, Matcha TTS). Each kind has the name, description and pins of the JAX
 package's. Pipelines name no device; the filters and ML nodes run on the one
 given to :func:`register_nodes`.
 """

@@ -1,6 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
-"""ML nodes ported so far: VAD, Whisper STT, NLLB and Marian translation, and
-the VITS / FastSpeech TTS node, on the registering device."""
+"""ML nodes: VAD, Whisper and SenseVoice STT, NLLB and Marian translation, the
+TTS node (Kokoro, VITS, FastSpeech) and Matcha TTS, on the registering
+device."""
 
 from ...device import resolve_device
 
@@ -9,6 +10,8 @@ def register_ml_nodes(registry, *, device=None) -> None:
     """Register the ML kinds; their nodes run on ``device`` (default
     ``cuda``, which raises without a card)."""
     from .marian_node import MarianTranslateNode
+    from .matcha_node import MatchaTtsNode
+    from .sensevoice_node import SenseVoiceNode
     from .translate_node import TranslateNode
     from .tts_node import TtsNode
     from .vad_node import VadNode
@@ -29,4 +32,14 @@ def register_ml_nodes(registry, *, device=None) -> None:
         "plugin::native::piper",
         lambda p: TtsNode(p, device=dev),
         "Piper (VITS) streaming TTS (device model)",
+    )
+    registry.register(
+        MatchaTtsNode.KIND,
+        lambda p: MatchaTtsNode(p, device=dev),
+        "Matcha-TTS flow-matching TTS (device model)",
+    )
+    registry.register(
+        SenseVoiceNode.KIND,
+        lambda p: SenseVoiceNode(p, device=dev),
+        "SenseVoice non-autoregressive STT (device model)",
     )

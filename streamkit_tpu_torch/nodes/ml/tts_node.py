@@ -1,18 +1,16 @@
 # SPDX-License-Identifier: Apache-2.0
 """Streaming TTS node: Text → RawAudio.
 
-Port of ``streamkit_tpu/nodes/ml/tts_node.py`` for the ``vits`` and
-``fastspeech`` backends. Parity target: ``plugin::native::kokoro``
-(``plugins/native/kokoro/src/kokoro_node.rs:25-123,444-532``; piper shares
-the shape): buffers incoming Text, a sentence splitter extracts complete
-sentences, each sentence is synthesized as one unit, the remainder is flushed
-at the end of input. Synthesis runs on the device the node was registered
-with: VITS (:mod:`streamkit_tpu_torch.models.vits`), or the acoustic model
-and HiFi-GAN vocoder (:mod:`streamkit_tpu_torch.models.tts`).
-
-The ``kokoro`` backend (``backend: kokoro``, or ``auto`` on a model dir
-holding ``voices.bin``) needs ``models/kokoro.py``, which the port does not
-have yet: the node refuses such a configuration with ``ConfigurationError``.
+Port of ``streamkit_tpu/nodes/ml/tts_node.py``. Parity target:
+``plugin::native::kokoro`` (``plugins/native/kokoro/src/
+kokoro_node.rs:25-123,444-532``; piper shares the shape): buffers incoming
+Text, a sentence splitter extracts complete sentences, each sentence is
+synthesized as one unit, the remainder is flushed at the end of input.
+Synthesis runs on the device the node was registered with, by one of three
+backends: Kokoro (:mod:`streamkit_tpu_torch.models.kokoro`; ``backend:
+kokoro``, or ``auto`` on a model dir holding ``voices.bin``), VITS
+(:mod:`streamkit_tpu_torch.models.vits`), or the acoustic model and HiFi-GAN
+vocoder (:mod:`streamkit_tpu_torch.models.tts`).
 """
 
 from __future__ import annotations
@@ -107,7 +105,7 @@ class TtsNode(ProcessorNode):
             {
                 "model_path": None,  # npz (fastspeech) or HF VitsModel dir
                 "model_dir": None,  # reference param name (kokoro/piper config)
-                "backend": "auto",  # auto | vits | fastspeech | kokoro (not ported)
+                "backend": "auto",  # auto | vits | fastspeech | kokoro
                 "sample_rate": 24000,
                 "frames_per_char": 6,  # mel frames per input char (≈70ms/char)
                 "speed": 1.0,
@@ -138,11 +136,6 @@ class TtsNode(ProcessorNode):
         self.frames_per_char = float(cfg["frames_per_char"])
         self.speed = float(cfg["speed"])
         self.allow_random_init = bool(cfg["allow_random_init"])
-        if self._pick_backend() == "kokoro":
-            raise ConfigurationError(
-                f"{self.KIND}: the kokoro backend (models/kokoro.py) is not ported yet; "
-                "use backend: vits or fastspeech"
-            )
 
     def input_pins(self) -> List[InputPin]:
         return [InputPin("in", [PacketType.text(), PacketType.transcription()])]
@@ -169,6 +162,12 @@ class TtsNode(ProcessorNode):
             loop = asyncio.get_running_loop()
 
             def build():
+                if backend == "kokoro":
+                    from ...models.kokoro import load_kokoro_dir
+
+                    if not (self.model_path and os.path.isdir(self.model_path)):
+                        raise ConfigurationError(f"kokoro backend requires a model dir: {self.model_path}")
+                    return ("kokoro",) + load_kokoro_dir(self.model_path, device=dev)
                 if backend == "vits":
                     from ...models.vits import VitsCharTokenizer, VitsConfig, load_vits, vits_init_params
 
@@ -195,6 +194,66 @@ class TtsNode(ProcessorNode):
             return await ctx.resources.get_or_create(key, loader)
         return await loader()
 
+    def _kokoro(self, ctx: NodeContext, loaded):
+        """The Kokoro backend's format, one-sentence synthesis and (with a
+        batcher) cross-session synthesis: durations and the encode, expand
+        and decode core are two batcher kinds, since the frame bucket is
+        known only after the durations."""
+        from ...models.kokoro import (
+            SAMPLE_RATE,
+            TOKEN_BUCKETS,
+            kokoro_bucket,
+            kokoro_core_batch,
+            kokoro_durations_batch,
+            kokoro_finish,
+            kokoro_frames,
+            kokoro_synthesize,
+            kokoro_token_row,
+        )
+
+        _, kcfg, kparams, ktokens, kvoices = loaded
+        if self.speaker_id >= kvoices.shape[0]:
+            raise ConfigurationError(
+                f"speaker_id {self.speaker_id} out of range: voices.bin has {kvoices.shape[0]} voices"
+            )
+        pack = kvoices[self.speaker_id]
+
+        def synth_sync(sentence: str) -> np.ndarray:
+            return kokoro_synthesize(kparams, kcfg, ktokens.encode(sentence), pack, speed=self.speed)
+
+        if ctx.batcher is None:
+            return AudioFormat(SAMPLE_RATE, 1), synth_sync, None
+        tag = f"{self.model_path or 'randinit'}:{self.speaker_id}:{self.speed}"
+
+        def dur_fn(tok_b, tm_b, st_b):
+            with torch.inference_mode():
+                return kokoro_durations_batch(kparams, kcfg, tok_b, tm_b, st_b)
+
+        def core_fn(f_pad: int):
+            def fn(tok_b, tm_b, st_b, fi_b, fm_b):
+                with torch.inference_mode():
+                    return kokoro_core_batch(kparams, kcfg, tok_b, tm_b, st_b, fi_b, fm_b, f_pad)[0]
+
+            return fn
+
+        async def synth_batched(sentence: str) -> np.ndarray:
+            ids = ktokens.encode(sentence)
+            if not ids:
+                return np.zeros(0, np.float32)
+            t = len(ids)
+            tok, t_mask = kokoro_token_row(ids, kcfg)
+            style = np.asarray(pack[min(t, pack.shape[0] - 1)], np.float32)
+            kind = f"kokoro_dur:{tag}:{kokoro_bucket(t, TOKEN_BUCKETS)}"
+            ctx.batcher.register(kind, dur_fn, max_batch=16, transient=True)
+            dur = await ctx.batcher.submit(kind, tok, t_mask, style)
+            fi, f_mask, kept = kokoro_frames(dur, t, self.speed)
+            kind = f"kokoro_core:{tag}:{len(tok)}:{len(fi)}"
+            ctx.batcher.register(kind, core_fn(len(fi)), max_batch=16, transient=True)
+            audio = await ctx.batcher.submit(kind, tok, t_mask, style, fi, f_mask)
+            return kokoro_finish(audio, kept)
+
+        return AudioFormat(SAMPLE_RATE, 1), synth_sync, synth_batched
+
     async def run(self, ctx: NodeContext) -> None:
         stats = NodeStatsTracker(ctx.node_name, ctx.stats_tx)
         telemetry = TelemetryEmitter(ctx.node_name, ctx.telemetry_tx)
@@ -206,7 +265,9 @@ class TtsNode(ProcessorNode):
         seq = 0
         synth_batched = None  # set by the backend that batches across sessions
 
-        if loaded[0] == "vits":
+        if loaded[0] == "kokoro":
+            fmt, synth_sync, synth_batched = self._kokoro(ctx, loaded)
+        elif loaded[0] == "vits":
             from ...models.vits import synthesize as vits_synthesize
 
             _, mcfg, mparams, tok = loaded

@@ -49,8 +49,11 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.engine.slots
     import streamkit_tpu_torch.engine.stt_serving
     import streamkit_tpu_torch.models
+    import streamkit_tpu_torch.models.kokoro
     import streamkit_tpu_torch.models.marian
+    import streamkit_tpu_torch.models.matcha
     import streamkit_tpu_torch.models.nllb
+    import streamkit_tpu_torch.models.sensevoice
     import streamkit_tpu_torch.models.seq2seq
     import streamkit_tpu_torch.models.silero_vad
     import streamkit_tpu_torch.models.sp_tokenizer
@@ -77,6 +80,8 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.nodes.ml
     import streamkit_tpu_torch.nodes.ml._text_batching
     import streamkit_tpu_torch.nodes.ml.marian_node
+    import streamkit_tpu_torch.nodes.ml.matcha_node
+    import streamkit_tpu_torch.nodes.ml.sensevoice_node
     import streamkit_tpu_torch.nodes.ml.translate_node
     import streamkit_tpu_torch.nodes.ml.tts_node
     import streamkit_tpu_torch.nodes.ml.vad_node
@@ -90,6 +95,7 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.ops.resample
     import streamkit_tpu_torch.ops.stream_attention
     import streamkit_tpu_torch.ops.vad
+    import streamkit_tpu_torch.utils.jax_prng
     import streamkit_tpu_torch.utils.speechsynth
     import streamkit_tpu_torch.utils.tracing
     new = set(sys.modules) - before
@@ -124,6 +130,11 @@ _SCRIPT = textwrap.dedent(
         from streamkit_tpu_torch.nodes.ml.marian_node import MarianTranslateNode
         from streamkit_tpu_torch.nodes.ml.translate_node import TranslateNode
         from streamkit_tpu_torch.nodes.ml.tts_node import TtsNode
+        from streamkit_tpu_torch.models.kokoro import KokoroConfig, kokoro_init_params, load_kokoro_dir
+        from streamkit_tpu_torch.models.matcha import MatchaConfig, matcha_init_params
+        from streamkit_tpu_torch.models.sensevoice import SenseVoiceConfig, sensevoice_init_params
+        from streamkit_tpu_torch.nodes.ml.matcha_node import MatchaTtsNode
+        from streamkit_tpu_torch.nodes.ml.sensevoice_node import SenseVoiceNode
         small = dict(d_model=8, encoder_layers=1, decoder_layers=1, heads=2, ffn_dim=8, max_positions=8)
 
         for name, call in [
@@ -153,6 +164,15 @@ _SCRIPT = textwrap.dedent(
             ("TranslateNode", lambda: TranslateNode(None)),
             ("MarianTranslateNode", lambda: MarianTranslateNode(None)),
             ("TtsNode", lambda: TtsNode(None)),
+            ("kokoro_init_params", lambda: kokoro_init_params(KokoroConfig(n_tokens=4, hidden=8, style_dim=4))),
+            ("load_kokoro_dir", lambda: load_kokoro_dir("samples/kokoro-golden")),
+            ("matcha_init_params", lambda: matcha_init_params(MatchaConfig(vocab_size=8, d_model=8, ffn_dim=8,
+                                                                           dec_channels=8, enc_layers=1,
+                                                                           dec_layers=1))),
+            ("sensevoice_init_params", lambda: sensevoice_init_params(SenseVoiceConfig(vocab_size=8, d_model=8,
+                                                                                       ffn_dim=8, layers=1))),
+            ("MatchaTtsNode", lambda: MatchaTtsNode(None)),
+            ("SenseVoiceNode", lambda: SenseVoiceNode(None)),
         ]:
             try:
                 call()

@@ -589,3 +589,95 @@ def test_vits_synthesize_on_cuda_matches_cpu():
         out[dev] = (dur.cpu(), wave.cpu(), n.cpu())
     assert torch.equal(out["cuda"][0], out["cpu"][0]) and torch.equal(out["cuda"][2], out["cpu"][2])
     assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_kokoro_on_cuda_matches_cpu():
+    """The golden pack at f32 (hidden 512, random from ``PRNGKey(0)``): four
+    sentences in one 64-token bucket, the first past 512 frames; durations
+    equal on the card and the CPU, audio within 1e-4; ``kokoro_synthesize``
+    of one sentence the same length and within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    import numpy as np
+
+    from streamkit_tpu_torch.models import kokoro
+
+    pack = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "samples", "kokoro-golden")
+    cfg, cpu, tokens, voices = kokoro.load_kokoro_dir(pack, device="cpu")
+    ids = [tokens.encode(s) for s in ("hello there, this is a test of kokoro.", "the quick brown fox", "a")]
+    tok, mask = (np.stack(a) for a in zip(*(kokoro.kokoro_token_row(i, cfg) for i in ids)))
+    style = np.stack([voices[1][len(i)] for i in ids]).astype(np.float32)
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            params = cpu if dev == "cpu" else kokoro.kokoro_init_params(cfg, device=dev)
+            args = [torch.as_tensor(a, device=dev) for a in (tok, mask, style)]
+            dur = kokoro.kokoro_durations_batch(params, cfg, *args).cpu()
+            fr = [kokoro.kokoro_frames(dur[r].numpy(), len(i), 1.0) for r, i in enumerate(ids)]
+            fi = np.stack([np.pad(f[0], (0, 512 - len(f[0]))) for f in fr])
+            fm = np.stack([np.pad(f[1], (0, 512 - len(f[1]))) for f in fr])
+            audio, f0 = kokoro.kokoro_core_batch(params, cfg, *args, torch.as_tensor(fi, device=dev),
+                                                 torch.as_tensor(fm, device=dev), 512)
+            one = kokoro.kokoro_synthesize(params, cfg, ids[1], voices[0], speed=1.3)
+            out[dev] = (dur, audio.cpu(), one, [f[2] for f in fr])
+    assert torch.equal(out["cuda"][0], out["cpu"][0]) and out["cpu"][3][0] == 512
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-4
+    assert out["cuda"][2].shape == out["cpu"][2].shape
+    assert np.abs(out["cuda"][2] - out["cpu"][2]).max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", ["node", "published-2"])
+def test_matcha_on_cuda_matches_cpu(widths):
+    """Matcha at f32, the node's random configuration and the published
+    widths cut to 2 + 2 layers: frame counts equal on the card and the CPU,
+    mels within 1e-3 after 10 Euler steps (cuDNN's convolutions, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from streamkit_tpu_torch.models import matcha
+    from streamkit_tpu_torch.nodes.ml.matcha_node import random_init_config
+
+    cfg = random_init_config(10, 0) if widths == "node" else matcha.MatchaConfig(enc_layers=2, dec_layers=2)
+    ids = torch.randint(0, cfg.vocab_size, (3, 32), generator=torch.Generator().manual_seed(0))
+    mask = (torch.arange(32)[None] < torch.tensor([[32], [20], [7]])).float()
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            params = matcha.matcha_init_params(cfg, 0, device=dev)
+            mel, n = matcha.matcha_synthesize_mel(params, cfg, ids.to(dev), 256, mask=mask.to(dev), length_scale=1.2)
+            out[dev] = (mel.cpu(), n.cpu())
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", ["node", "published-2"])
+def test_sensevoice_on_cuda_matches_cpu(widths):
+    """SenseVoice at f32, the node's random configuration and the published
+    widths cut to 2 layers: logits within 1e-3 on the card and the CPU, CTC
+    ids equal; the bf16 logits on the card finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from streamkit_tpu_torch.models import sensevoice as sv
+    from streamkit_tpu_torch.nodes.ml.sensevoice_node import RANDOM_INIT_CONFIG
+
+    cfg = RANDOM_INIT_CONFIG if widths == "node" else sv.SenseVoiceConfig(layers=2)
+    mel = torch.randn(3, 96, 80, generator=torch.Generator().manual_seed(0))
+    mask = (torch.arange(16)[None] < torch.tensor([[16], [10], [3]])).float()
+    lang, itn = torch.tensor([2, 0, 5], dtype=torch.int32), torch.tensor([1, 0, 1], dtype=torch.int32)
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            params = sv.sensevoice_init_params(cfg, 0, device=dev)
+            logits = sv.sensevoice_logits(params, cfg, *(t.to(dev) for t in (mel, mask, lang, itn))).cpu()
+            out[dev] = (logits, sv.ctc_greedy_decode(logits[:, 2:].numpy(), mask.numpy().astype(bool)))
+        bf16 = sv.sensevoice_init_params(cfg, 0, torch.bfloat16, device="cuda")
+        low = sv.sensevoice_logits(bf16, cfg, *(t.to("cuda") for t in (mel, mask, lang, itn)))
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-3
+    assert out["cuda"][1] == out["cpu"][1] and any(out["cpu"][1])
+    assert low.dtype == torch.float32 and bool(torch.isfinite(low).all()) and np.prod(low.shape) == 3 * 18 * cfg.vocab_size

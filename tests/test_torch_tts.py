@@ -336,21 +336,29 @@ def test_tts_node_audio_matches_jax(backend):
 
 
 def test_tts_node_refuses_the_kokoro_backend(tmp_path):
-    """``backend: kokoro``, and ``auto`` on a dir holding ``voices.bin``,
-    need models/kokoro.py, which the port does not have: a refusal naming
-    the backend, not a fallback to another one."""
+    """The kokoro backend (``backend: kokoro``, or ``auto`` on a dir holding
+    ``voices.bin``) is picked at construction and refuses, when it loads, a
+    model that is not a Kokoro dir: none at all (``ConfigurationError``) or
+    one without ``tokens.txt`` (``FileNotFoundError``, as the reference's
+    loader raises), with no fallback to another backend. Kokoro synthesis
+    itself is held against the JAX package in ``test_torch_kokoro.py``."""
+    from streamkit_tpu.nodes.ml.tts_node import TtsNode as JaxTtsNode
     from streamkit_tpu_torch.core import ConfigurationError, NodeRegistry
     from streamkit_tpu_torch.nodes import register_nodes
     from streamkit_tpu_torch.nodes.ml.tts_node import TtsNode
 
-    with pytest.raises(ConfigurationError, match="kokoro backend"):
-        TtsNode({"backend": "kokoro", "model_dir": str(tmp_path)}, device="cpu")
+    assert TtsNode({"backend": "kokoro", "model_dir": str(tmp_path)}, device="cpu")._pick_backend() == "kokoro"
+    with pytest.raises(ConfigurationError, match="kokoro backend requires a model dir"):
+        run_tts("streamkit_tpu_torch", {"backend": "kokoro"}, ["hello."])
     (tmp_path / "voices.bin").write_bytes(b"\0" * 16)
     reg = NodeRegistry()
     register_nodes(reg, device="cpu")
     for kind in ("plugin::native::kokoro", "plugin::native::piper"):
-        with pytest.raises(ConfigurationError, match="kokoro backend"):
-            reg.create_node(kind, {"model_dir": str(tmp_path)})
+        node = reg.create_node(kind, {"model_dir": str(tmp_path)})
+        assert node._pick_backend() == JaxTtsNode({"model_dir": str(tmp_path)})._pick_backend() == "kokoro"
+    for pkg in ("streamkit_tpu", "streamkit_tpu_torch"):
+        with pytest.raises(FileNotFoundError, match="missing tokens.txt"):
+            run_tts(pkg, {"model_dir": str(tmp_path)}, ["hello."])
     (tmp_path / "voices.bin").unlink()
     (tmp_path / "config.json").write_text("{}")
     assert TtsNode({"model_dir": str(tmp_path)}, device="cpu")._pick_backend() == "vits"

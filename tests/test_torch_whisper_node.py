@@ -304,8 +304,9 @@ PORT_KINDS = [
     "containers::ogg::muxer", "containers::wav::demuxer", "containers::wav::muxer", "core::file_reader",
     "core::file_writer", "core::json_serialize", "core::pacer", "core::passthrough", "core::sink",
     "core::telemetry_out", "core::telemetry_tap", "core::text_chunker", "plugin::native::helsinki",
-    "plugin::native::kokoro", "plugin::native::nllb", "plugin::native::piper", "plugin::native::vad",
-    "plugin::native::whisper", "streamkit::http_input", "streamkit::http_output",
+    "plugin::native::kokoro", "plugin::native::matcha", "plugin::native::nllb", "plugin::native::piper",
+    "plugin::native::sensevoice", "plugin::native::vad", "plugin::native::whisper", "streamkit::http_input",
+    "streamkit::http_output",
 ]
 OPUS_KINDS = ["audio::opus::decoder", "audio::opus::encoder"]  # where libopus loads
 
@@ -315,6 +316,27 @@ def test_port_registers_exactly_the_ported_kinds(registries):
 
     want = sorted(PORT_KINDS + (OPUS_KINDS if opus_available() else []))
     assert registries["torch"].kinds() == want
+
+
+# the JAX registry's kinds the port has not ported: host nodes only (the
+# script node, the WebM muxer, the MP3 / FLAC decoders, HTTP and MoQ transport)
+HOST_KINDS_TO_PORT = [
+    "audio::flac::decoder", "audio::mp3::decoder", "containers::webm::muxer", "core::script",
+    "transport::http::fetcher", "transport::moq::peer", "transport::moq::publisher", "transport::moq::subscriber",
+]
+
+
+def test_only_host_kinds_are_missing_from_the_port(registries):
+    """Every device model of the JAX registry is registered by the port (27
+    kinds, 29 where libopus loads); the JAX kinds still missing are the 8
+    host kinds above (those the JAX package registers here: its codec kinds
+    need their libraries, as the port's Opus kinds do)."""
+    from streamkit_tpu_torch.nodes.codecs import opus_available
+
+    jax_kinds, port_kinds = set(registries["jax"].kinds()), set(registries["torch"].kinds())
+    assert len(port_kinds) == (29 if opus_available() else 27)
+    assert port_kinds <= jax_kinds
+    assert jax_kinds - port_kinds == set(HOST_KINDS_TO_PORT) & jax_kinds
 
 
 @pytest.mark.parametrize("kind", PORT_KINDS + OPUS_KINDS)
