@@ -66,7 +66,7 @@
    One load check of libopus comes before 8 and 9, and a line says its
    result: without libopus 8 runs only ``double_volume.yml`` and 9 reads
    ``samples/media/speech_8s.wav`` through the WAV demuxer.
-10. DSP through the registry: 128 concurrent oneshot requests of 30 s
+10. DSP through the registry: 128 concurrent oneshot requests of 15 s
    (48 kHz mono, 44.1 kHz stereo → 16 kHz) through ``audio::resampler`` at
    ``compat: exact``, ``backend: device`` and one ``DeviceBatcher`` (the
    slot-table route, end-of-file flush included), byte for byte against the
@@ -107,8 +107,27 @@
    ``MEL_ATOL``, SenseVoice's CTC ids of 2 clips equal. K1–K3 launch 0
    times there.
 
+14. The server (``# server``): ``python3 -m streamkit_tpu_torch.server
+   serve --port 0`` as a child process (its log names the port; it answers
+   ``/healthz``, ``/api/v1/config`` and ``/api/v1/schema/nodes`` with the
+   in-process registry's kinds; SIGINT ends it with 0, no process left on
+   the card); then ``create_app(device="cuda")`` on 127.0.0.1:0 in this
+   script's loop, every request over real sockets through the port's own
+   client: a warm request, phase 4's four STT requests at once as multipart
+   ``POST /api/v1/process`` (phase 4's checks, K1 32 per encode, walls
+   beside phase 4's), a WAV uploaded as an asset and read back by
+   ``transport::http::fetcher`` in a session made by ``POST
+   /api/v1/sessions``, ``double_volume.yml`` equal to the CPU's bytes,
+   ``live_captions.yml``'s graph built over the WebSocket control plane
+   (file reader and WAV demuxer in front) whose captions a WebSocket
+   subscriber reads from ``/moq/captions`` (partials and a final; 2 K2 and
+   32 K3 per fused call; a device profile of the session names K3; no
+   session or stream-table row left after ``destroysession``), the metrics
+   and heap routes, and the f32 node check through a ``cuda`` and a ``cpu``
+   server (equal lines, K1 on the card only).
+
 Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9,
-11, 12, 13) and read just after; each must equal what the code implies (K1: 32
+11, 12, 13, and each request or session of 14) and read just after; each must equal what the code implies (K1: 32
 per encode of 256 or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one for the
 encoder caches and their scales and one for the two decoder folds; K3: 32
 per fused step call). Every batcher kind these paths dispatch is registered
@@ -594,18 +613,22 @@ def wav_body(audio: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
-def stt_pipeline(whisper_params: dict):
-    """``http_input → wav demuxer → whisper → json_serialize → http_output``,
-    compiled as the server compiles a request's pipeline."""
-    from streamkit_tpu_torch.api import compile_pipeline_dict
-
-    return compile_pipeline_dict({"name": "speech-to-text", "mode": "oneshot", "steps": [
+def stt_doc(whisper_params: dict) -> dict:
+    """``http_input → wav demuxer → whisper → json_serialize → http_output``."""
+    return {"name": "speech-to-text", "mode": "oneshot", "steps": [
         {"kind": "streamkit::http_input"},
         {"kind": "containers::wav::demuxer"},
         {"kind": "plugin::native::whisper", "params": whisper_params},
         {"kind": "core::json_serialize", "params": {"newline_delimited": True}},
         {"kind": "streamkit::http_output", "params": {"content_type": "application/json"}},
-    ]})
+    ]}
+
+
+def stt_pipeline(whisper_params: dict):
+    """:func:`stt_doc`, compiled as the server compiles a request's pipeline."""
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+
+    return compile_pipeline_dict(stt_doc(whisper_params))
 
 
 @contextlib.contextmanager
@@ -698,6 +721,9 @@ def kind_calls(stats: dict, prefix: str) -> int:
     return sum(v["calls"] for k, v in stats["kinds"].items() if k.startswith(prefix))
 
 
+SEGMENT_WALLS = {}  # audio seconds → the batched request's in-process wall (phase 4), for the server phase
+
+
 def segment_final_path(resources):
     """Path 3: four concurrent oneshot requests through one ``DeviceBatcher``
     (the node's ``vad_ring`` / ``whisper_detect`` / ``whisper_ring`` kinds),
@@ -743,6 +769,7 @@ def segment_final_path(resources):
         before, stats, out, counts_b, rows_w, wall_w, t_batched, t_window = asyncio.run(run())
     counts = read_counts()
     for i, ((rows, wall), s) in enumerate(zip(out, secs)):
+        SEGMENT_WALLS[s] = wall
         log("# request " + json.dumps({"audio_s": s, "wall_s": wall, "lines": len(rows), "batcher": True}))
         show(rows, f"request {i} transcription")
         check_transcripts(rows, s, f"request {i}")
@@ -1142,7 +1169,7 @@ def run_requests(registry, pipeline, bodies, batched: bool):
     return asyncio.run(run())
 
 
-def dsp_phase(S: int = 128, secs: float = 30.0) -> dict:
+def dsp_phase(S: int = 128, secs: float = 15.0) -> dict:
     """The filter nodes on the card, through the port's registry and oneshot
     engine. (1) The resampler's slot-table route: S concurrent requests of
     ``secs`` of audio each (``http_input → containers::wav::demuxer →
@@ -2094,6 +2121,441 @@ def speech_phase(opus: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. the server: the port's entry point, over real sockets
+# ---------------------------------------------------------------------------
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def node_states_done(pipeline: dict) -> bool:
+    """Every node of a session's pipeline snapshot stopped; raises on a failure."""
+    states = [n.get("state") for n in pipeline["nodes"].values()]
+    if any(isinstance(st, dict) and "failed" in st for st in states):
+        raise AssertionError(f"server session: a node failed: {pipeline['nodes']}")
+    return bool(states) and all(isinstance(st, dict) and "stopped" in st for st in states)
+
+
+def server_subprocess_phase() -> dict:
+    """(a) ``python3 -m streamkit_tpu_torch.server serve --address 127.0.0.1
+    --port 0`` as a child process: its log names the port it bound; it
+    answers ``/healthz``, ``/api/v1/config`` and ``/api/v1/schema/nodes``
+    (the kinds of the in-process registry on ``cuda``), then exits 0 on
+    SIGINT and leaves no compute process on the card."""
+    import re
+    import signal
+    import threading
+
+    from streamkit_tpu_torch.server.http import ClientSession
+
+    env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", "streamkit_tpu_torch.server", "serve", "--address", "127.0.0.1",
+                             "--port", "0"], cwd=REPO_DIR, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines, port, bound = [], [], threading.Event()
+
+    def drain():  # the child's log, read to its end so the pipe never fills
+        for line in proc.stderr:
+            lines.append(line)
+            m = re.search(r"serving on 127\.0\.0\.1:(\d+)", line)
+            if m and not port:
+                port.append(int(m.group(1)))
+                bound.set()
+        bound.set()
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    try:
+        if not bound.wait(300) or not port:
+            raise AssertionError("server subprocess reported no port: " + "".join(lines[-20:]))
+        t_bound = time.monotonic() - t0
+        base = f"http://127.0.0.1:{port[0]}"
+
+        async def ask():
+            client, out = ClientSession(timeout=120), {}
+            for path in ("/healthz", "/api/v1/config", "/api/v1/schema/nodes"):
+                r = await client.get(base + path)
+                out[path] = (r.status, await r.json())
+            return out
+
+        got = asyncio.run(ask())
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.split()
+    kinds = sorted(n["kind"] for n in got["/api/v1/schema/nodes"][1]["nodes"])
+    want = node_registry("cuda").kinds()
+    report = {"port": port[0], "bound_after_s": t_bound, "exit_code": rc, "kinds": len(kinds),
+              "health": got["/healthz"], "config_status": got["/api/v1/config"][0],
+              "pid_left_on_card": str(proc.pid) in apps,
+              "warnings": [ln.strip() for ln in lines if " WARNING " in ln]}
+    log("# server subprocess " + json.dumps(report))
+    if (got["/healthz"] != (200, {"status": "ok"}) or got["/api/v1/config"][0] != 200 or kinds != want
+            or rc != 0 or report["pid_left_on_card"]):
+        raise AssertionError(f"server subprocess: {report}; kinds {kinds} against {want}")
+    return report
+
+
+def asset_file_app(root: str):
+    """Serves the files under ``root`` at ``/assets/{id}``: the server (as the
+    JAX one) lists, uploads and deletes assets but returns no asset's bytes,
+    so the fetcher reads the uploaded file from here."""
+    from streamkit_tpu_torch.server import http
+
+    async def get(request):
+        path = os.path.join(root, os.path.basename(request.match_info["id"]))
+        if not os.path.isfile(path):
+            raise http.HTTPNotFound()
+        return http.FileResponse(path)
+
+    app = http.Application()
+    app.router.add_get("/assets/{id}", get)
+    return app
+
+
+def stream_slots_held() -> dict:
+    """Held rows of every stream table, by table."""
+    from streamkit_tpu_torch.models.whisper import streaming
+
+    return {f"{tag}@{dev}": t.max_slots - len(t._free) for (tag, dev), t in streaming._TABLES.items()}
+
+
+def server_phase() -> dict:
+    """(b) ``create_app(device="cuda")`` on 127.0.0.1:0 in this script's
+    loop; every request through real sockets and the port's client:
+
+    1. a warm request (the model loads; the batched kinds are then warmed
+       and the whisper kinds set to coalesce four, as in phase 4);
+    2. four concurrent multipart ``POST /api/v1/process`` with phase 4's
+       pipeline (large-v3 bf16, ``language: auto``) and its four WAV
+       bodies: phase 4's transcript checks, K1 32 per encode, each wall
+       beside phase 4's in-process wall for the same body;
+    3. a WAV uploaded through ``POST /api/v1/assets``, read back over HTTP
+       by ``transport::http::fetcher`` in a session made by ``POST
+       /api/v1/sessions`` (fetcher → WAV demuxer → whisper → JSON lines to
+       a file): Transcription lines, K1 32 per encode;
+    4. ``double_volume.yml`` on ``tone.wav``: bytes equal to the port's CPU run;
+    5. ``live_captions.yml``'s graph built over the WebSocket control plane
+       (``createsession``, ``addnode``, ``connect``; ``core::file_reader`` on
+       ``speech_8s.wav`` and the WAV demuxer in place of the MoQ subscriber
+       and the Opus decoder, a 4× pacer), its captions published by
+       ``transport::moq::publisher {broadcast: captions}`` and read by a
+       WebSocket subscriber on ``/moq/captions``: partials and a final;
+       exactly 2 K2 and 32 K3 per fused call, K1 32 per ring decode; a
+       device profile taken meanwhile names K3; after ``destroysession`` no
+       session and no stream-table row is left;
+    6. ``/api/v1/metrics`` and the heap route (CUDA memory in use).
+
+    (c) The node context check through servers: a small f32 Whisper whose
+    encoder takes K1, the same request to this server and to one on
+    ``cpu``: equal Transcription lines (confidence within 1e-4)."""
+    import tempfile
+    import wave
+
+    import yaml
+
+    from streamkit_tpu_torch.core.moq_gateway import decode_media_frame
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig
+    from streamkit_tpu_torch.nodes.ml.whisper_node import warmup_batched_kinds
+    from streamkit_tpu_torch.server import ServerConfig, create_app
+    from streamkit_tpu_torch.server.http import AppRunner, ClientSession, FormData, WSMsgType
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    report = {}
+    per = flash_per_encode()
+    rng = np.random.RandomState(0)
+    secs = (10.0, 13.0, 16.0, 19.0)
+    bodies = [wav_body(session_audio(rng, s)) for s in secs]  # phase 4's bodies
+    stt = stt_doc({"model_size": "large-v3", "dtype": "bfloat16", "language": "auto"})
+    with open(os.path.join(SAMPLES, "pipelines", "system", "live_captions.yml")) as f:
+        live = {st["kind"]: st.get("params") or {} for st in yaml.safe_load(f)["steps"]}
+    with open(os.path.join(SAMPLES, "pipelines", "system", "double_volume.yml")) as f:
+        double_volume = f.read()
+    with open(os.path.join(SAMPLES, "media", "tone.wav"), "rb") as f:
+        tone = f.read()
+    _, tone_cpu, _ = asyncio.run(oneshot_bytes(node_registry("cpu"), sample_pipeline("double_volume.yml"), tone))
+    speech8 = os.path.join(SAMPLES, "media", "speech_8s.wav")
+    with wave.open(speech8) as w:
+        speech8_s = w.getnframes() / w.getframerate()
+    WHISPER_CONFIGS["server-check"] = WhisperConfig(
+        n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=2, n_vocab=51865,
+        n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2)
+    check_audio = np.concatenate([np.zeros(SR // 2, np.float32), synth_speech(2.5, seed=21),
+                                  np.zeros(SR, np.float32)])
+    tmp = tempfile.TemporaryDirectory()
+    cfg = ServerConfig()
+    cfg.assets_dir = os.path.join(tmp.name, "assets")
+
+    async def run():
+        app = create_app(cfg, device="cuda")
+        state = app["state"]
+        runner = AppRunner(app)
+        base = f"http://127.0.0.1:{await runner.start('127.0.0.1', 0)}"
+        client = ClientSession(timeout=900)
+        files = AppRunner(asset_file_app(os.path.join(cfg.assets_dir, "user")))
+        files_base = f"http://127.0.0.1:{await files.start('127.0.0.1', 0)}"
+        cpu_runner = None
+
+        async def post_process(url, doc, body, config_text=None):
+            form = FormData()
+            form.add_field("config", config_text or json.dumps(doc))  # JSON is YAML
+            form.add_field("media", body, filename="in.wav", content_type="audio/wav")
+            t0 = time.monotonic()
+            r = await client.post(url + "/api/v1/process", data=form)
+            out = await r.read()
+            if r.status != 200:
+                raise AssertionError(f"server request {r.status}: {out[:500]!r}")
+            return r.headers.get("Content-Type"), out, time.monotonic() - t0
+
+        async def stt_request(body):
+            ctype, out, wall = await post_process(base, stt, body)
+            if ctype != "application/json":
+                raise AssertionError(f"server response content type {ctype}")
+            return transcripts(out), wall
+
+        async def wait_session(sid, limit_s=600.0):
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < limit_s:
+                await asyncio.sleep(0.25)
+                r = await client.get(f"{base}/api/v1/sessions/{sid}/pipeline")
+                if node_states_done((await r.json())["pipeline"]):
+                    return time.monotonic() - t0
+            raise AssertionError(f"server session {sid} did not end")
+
+        try:
+            # 1. warm request, then the batched kinds warmed as in phase 4
+            t0 = time.monotonic()
+            await stt_request(wav_body(np.zeros(SR, np.float32)))
+            report["warm_request_s"] = time.monotonic() - t0
+            await warmup_batched_kinds(state.batcher, sweep_to=0)
+            whisper_kinds = [k for k in state.batcher.registered_kinds()
+                             if k.startswith(("whisper_ring:", "whisper_detect:"))]
+            for name in whisper_kinds:
+                state.batcher.set_expected(name, len(bodies))
+
+            # 2. four concurrent oneshot STT requests
+            before = state.batcher.stats()
+            reset_counts()
+            t0 = time.monotonic()
+            out = await asyncio.gather(*(stt_request(b) for b in bodies))
+            report["oneshot_wall_s"] = time.monotonic() - t0
+            counts, stats = read_counts(), state.batcher.stats()
+            for name in whisper_kinds:
+                state.batcher.set_expected(name, None)
+            encodes = sum(kind_calls(stats, p) - kind_calls(before, p) for p in ("whisper_ring:", "whisper_detect:"))
+            for i, ((rows, wall), sec) in enumerate(zip(out, secs)):
+                log("# server request " + json.dumps({"audio_s": sec, "wall_s": wall,
+                                                      "phase4_in_process_wall_s": SEGMENT_WALLS.get(sec),
+                                                      "lines": len(rows)}))
+                show(rows, f"server request {i} transcription")
+                check_transcripts(rows, sec, f"server request {i}")
+                if any(r["confidence"] is None for r in rows if r["is_final"]):
+                    raise AssertionError(f"server request {i}: a ring-decode final without a confidence")
+            want = {"flash_attention": per * encodes, "windowed_write": 0, "history_attention": 0}
+            kinds = {k: {f: v[f] - before["kinds"].get(k, {}).get(f, 0) for f in ("calls", "items")}
+                     for k, v in stats["kinds"].items()}
+            report["oneshot"] = {"warm_request_s": report["warm_request_s"], "wall_s": report["oneshot_wall_s"],
+                                 "encodes": encodes, "launches": counts, "expected": want,
+                                 "kinds": {k: v for k, v in kinds.items() if v["calls"]}}
+            log("# server oneshot " + json.dumps(report["oneshot"]))
+            if counts != want or encodes == 0:
+                raise AssertionError(f"server oneshot requests launched {counts}, expected {want}")
+
+            # 3. the fetcher reads an uploaded asset back over HTTP
+            form = FormData()
+            form.add_field("file", bodies[0], filename="speech.wav", content_type="audio/wav")
+            r = await client.post(base + "/api/v1/assets", data=form)
+            uploaded = (r.status, await r.json())
+            out_path = os.path.join(tmp.name, "fetched.jsonl")
+            session_doc = {"mode": "dynamic", "nodes": {
+                "fetch": {"kind": "transport::http::fetcher", "params": {"url": f"{files_base}/assets/speech.wav"}},
+                "demux": {"kind": "containers::wav::demuxer", "needs": "fetch"},
+                "stt": {"kind": "plugin::native::whisper", "needs": "demux",
+                        "params": {"model_size": "large-v3", "dtype": "bfloat16", "language": "en"}},
+                "json": {"kind": "core::json_serialize", "params": {"newline_delimited": True}, "needs": "stt"},
+                "writer": {"kind": "core::file_writer", "params": {"path": out_path}, "needs": "json"}}}
+            before = state.batcher.stats()
+            reset_counts()
+            r = await client.post(base + "/api/v1/sessions", json={"name": "fetch", "yaml": json.dumps(session_doc)})
+            created = await r.json()
+            if r.status != 201 or uploaded != (201, {"id": "speech.wav"}):
+                raise AssertionError(f"fetcher session: upload {uploaded}, create {r.status} {created}")
+            wall = await wait_session(created["session_id"])
+            counts, stats = read_counts(), state.batcher.stats()
+            await (await client.delete(f"{base}/api/v1/sessions/{created['session_id']}")).read()
+            with open(out_path, "rb") as f:
+                rows = transcripts(f.read())
+            show([r for r in rows if r["is_final"]], "server fetcher final")
+            check_transcripts(rows, secs[0], "server fetcher session")
+            encodes = sum(kind_calls(stats, p) - kind_calls(before, p) for p in ("whisper_ring:", "whisper_detect:"))
+            want = {"flash_attention": per * encodes, "windowed_write": 0, "history_attention": 0}
+            report["fetcher"] = {"wall_s": wall, "lines": len(rows), "encodes": encodes, "launches": counts}
+            log("# server fetcher " + json.dumps(report["fetcher"]))
+            if counts != want or encodes == 0:
+                raise AssertionError(f"server fetcher session launched {counts}, expected {want}")
+
+            # 4. double_volume.yml as written
+            ctype, out_g, wall = await post_process(base, None, tone, config_text=double_volume)
+            report["double_volume"] = {"wall_s": wall, "bytes": len(out_g), "equal_to_cpu": out_g == tone_cpu}
+            log("# server double_volume " + json.dumps(report["double_volume"]))
+            if out_g != tone_cpu or ctype != "audio/wav":
+                raise AssertionError("server double_volume: the card's WAV differs from the CPU run")
+
+            # 5. a live session over the WebSocket control plane, captions over /moq/captions
+            ws = await client.ws_connect(base.replace("http", "ws", 1) + "/api/v1/control")
+            events = []
+
+            async def req(action, **fields):
+                corr = f"{action}-{time.monotonic()}"
+                await ws.send_json({"type": "request", "correlation_id": corr,
+                                    "payload": {"action": action, **fields}})
+                while True:
+                    msg = await ws.receive(timeout=120)
+                    if msg.type is not WSMsgType.TEXT:
+                        raise AssertionError(f"control plane closed: {msg}")
+                    doc = json.loads(msg.data)
+                    if doc["type"] == "response" and doc["correlation_id"] == corr:
+                        if doc["payload"].get("action") == "error":
+                            raise AssertionError(f"control plane {action}: {doc['payload']}")
+                        return doc["payload"]
+                    events.append(doc["payload"].get("event"))
+
+            nodes = [("reader", "core::file_reader", {"path": speech8}), ("demux", "containers::wav::demuxer", {}),
+                     ("pacer", "core::pacer", {"speed": 4.0}),
+                     ("resample", "audio::resampler", live["audio::resampler"]),
+                     ("stt", "plugin::native::whisper", live["plugin::native::whisper"]),
+                     ("json", "core::json_serialize", live["core::json_serialize"]),
+                     ("publish", "transport::moq::publisher", live["transport::moq::publisher"])]
+            before = state.batcher.stats()
+            reset_counts()
+            t0 = time.monotonic()
+            sid = (await req("createsession", name="live-captions"))["session_id"]
+            for name, kind, params in nodes:
+                await req("addnode", session_id=sid, node_id=name, kind=kind, params=params)
+            for (a, _, _), (b, _, _) in list(zip(nodes, nodes[1:]))[1:]:
+                await req("connect", session_id=sid, from_node=a, from_pin="out", to_node=b, to_pin="in")
+            broadcast = live["transport::moq::publisher"]["broadcast"]
+            while state.moq_relay.get(broadcast) is None:
+                if time.monotonic() - t0 > 60:
+                    raise AssertionError(f"broadcast {broadcast!r} was never announced")
+                await asyncio.sleep(0.02)
+            sub = await client.ws_connect(base.replace("http", "ws", 1) + f"/moq/{broadcast}?direction=subscribe")
+            frames = []
+
+            async def collect():
+                while True:
+                    msg = await sub.receive()
+                    if msg.type is not WSMsgType.BINARY:
+                        return msg
+                    frames.append(decode_media_frame(msg.data))
+
+            async def device_profile():
+                r = await client.get(base + "/api/v1/profile/device?duration_secs=4")
+                return r.status, await r.read()
+
+            collector = asyncio.ensure_future(collect())
+            while state.moq_relay.get(broadcast).subscriber_count == 0:
+                if time.monotonic() - t0 > 60:
+                    raise AssertionError(f"the WebSocket subscriber never attached to {broadcast!r}")
+                await asyncio.sleep(0.01)
+            profiling = asyncio.ensure_future(device_profile())
+            await asyncio.sleep(0.5)  # the profiler starts before the first block
+            await req("connect", session_id=sid, from_node="reader", from_pin="out", to_node="demux", to_pin="in")
+            while True:
+                await asyncio.sleep(0.25)
+                if node_states_done((await req("getpipeline", session_id=sid))["pipeline"]):
+                    break
+                if time.monotonic() - t0 > 600:
+                    raise AssertionError("server live session did not end")
+            session_wall = time.monotonic() - t0
+            end_msg = await asyncio.wait_for(collector, 60)
+            trace_status, trace = await profiling
+            torch.cuda.synchronize()
+            counts, stats = read_counts(), state.batcher.stats()
+            await req("destroysession", session_id=sid)
+            r = await client.get(base + "/api/v1/sessions")
+            left = await r.json()
+            held = stream_slots_held()
+            await ws.close()
+            calls = kind_calls(stats, "stream_step:") - kind_calls(before, "stream_step:")
+            encodes = sum(kind_calls(stats, p) - kind_calls(before, p) for p in ("whisper_ring:", "whisper_detect:"))
+            rows = transcripts(b"".join(p for p, _, _ in frames))
+            n_final = sum(r["is_final"] for r in rows)
+            report["session"] = {"wall_s": session_wall, "fused_calls": calls, "ring_encodes": encodes,
+                                 "frames": len(frames), "partials": len(rows) - n_final, "finals": n_final,
+                                 "subscriber_end": [end_msg.type.name, end_msg.data], "launches": counts,
+                                 "trace_bytes": len(trace), "trace_names_k3": b"history_attention" in trace,
+                                 "sessions_after": left, "stream_rows_held_after": held,
+                                 "events": {e: events.count(e) for e in set(events)}}
+            log("# server session " + json.dumps(report["session"]))
+            show([r for r in rows if r["is_final"]], "server session final")
+            check_transcripts(rows, speech8_s, "server live session", partials=True)
+            want = {"flash_attention": per * encodes, "windowed_write": 2 * calls, "history_attention": per * calls}
+            if counts != want or calls == 0:
+                raise AssertionError(f"server live session launched {counts}, expected {want}")
+            if trace_status != 200 or b"history_attention" not in trace:
+                raise AssertionError(f"device profile ({trace_status}, {len(trace)} bytes) does not name K3")
+            if left != {"sessions": []} or any(held.values()):
+                raise AssertionError(f"after destroysession: sessions {left}, stream rows held {held}")
+
+            # 6. observability
+            r = await client.get(base + "/api/v1/metrics")
+            metrics = (await r.read()).decode()
+            r = await client.get(base + "/api/v1/profile/heap?duration_secs=0.5")
+            heap = (await r.json())["device"]
+            report["observability"] = {"metrics_lines": len(metrics.splitlines()),
+                                       "memory_allocated": heap.get("memory_allocated"),
+                                       "memory_reserved": heap.get("memory_reserved")}
+            log("# server observability " + json.dumps(report["observability"]))
+            if "skit_batcher_device_calls" not in metrics or not heap.get("memory_allocated"):
+                raise AssertionError(f"server observability: {report['observability']}")
+
+            # (c) the f32 context check through two servers. The CPU server
+            # starts only now: a server installs the process-wide MoQ relay and
+            # gateway, which the live session above must find as its own.
+            cpu_cfg = ServerConfig()
+            cpu_cfg.moq_enabled = False
+            cpu_runner = AppRunner(create_app(cpu_cfg, device="cpu"))
+            cpu_base = f"http://127.0.0.1:{await cpu_runner.start('127.0.0.1', 0)}"
+            doc = stt_doc({"model_size": "server-check", "dtype": "float32", "max_tokens": 12, "language": "en"})
+            got, launched = {}, {}
+            for label, url in (("cuda", base), ("cpu", cpu_base)):
+                reset_counts()
+                _, body, _ = await post_process(url, doc, wav_body(check_audio))
+                got[label] = transcripts(body)
+                launched[label] = read_counts()["flash_attention"]
+            report["context_launches"] = launched
+            g, c = got["cuda"], got["cpu"]
+            same = len(g) == len(c) and all(
+                {k: v for k, v in a.items() if k != "confidence"} == {k: v for k, v in b.items() if k != "confidence"}
+                and (a["confidence"] is None) == (b["confidence"] is None)
+                and (a["confidence"] is None or abs(a["confidence"] - b["confidence"]) <= 1e-4)
+                for a, b in zip(g, c))
+            report["context"] = {"lines": len(g), "rows": g, "flash_launches": launched}
+            log("# server context " + json.dumps(report["context"]))
+            check_transcripts(g, len(check_audio) / SR, "server context")
+            if not same or launched["cuda"] == 0 or launched["cpu"] != 0:
+                raise AssertionError(f"server context: cuda {g} != cpu {c} (K1 launches {launched})")
+        finally:
+            if cpu_runner is not None:
+                await cpu_runner.cleanup()
+            await files.cleanup()
+            await runner.cleanup()
+
+    try:
+        with knobs(SK_STT_GATHER_MS=STT_GATHER_MS, SK_STREAM_SLOTS=4, SK_STREAM_PAD=1):
+            asyncio.run(run())
+    finally:
+        WHISPER_CONFIGS.pop("server-check", None)
+        tmp.cleanup()
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2154,20 +2616,30 @@ def main() -> int:
     t0 = time.monotonic()
     dsp_phase()
     log(f"# dsp phase {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    server_subprocess_phase()
+    server = server_phase()
+    log(f"# server phase {time.monotonic() - t0:.1f} s")
     ogg_k1 = {label: ogg[label]["launches"]["flash_attention"] for label in ("fused", "unfused") if label in ogg}
     k1.update(launches=seg["flash_attention"], path="oneshot segment finals (WhisperNode)",
               launches_live_captions=captions["flash_attention"], launches_live_partials=live["flash_attention"],
               launches_ogg_opus=ogg_k1, launches_dynamic_session=dynamic["flash_attention"],
               launches_speech_translate=cascade["speech_translate.yml"]["launches"]["flash_attention"],
               launches_voice_translate=cascade["voice_translate.yml"]["launches"]["flash_attention"],
-              launches_speech_models=speech["launches"]["flash_attention"])
+              launches_speech_models=speech["launches"]["flash_attention"],
+              launches_server_oneshot=server["oneshot"]["launches"]["flash_attention"],
+              launches_server_fetcher=server["fetcher"]["launches"]["flash_attention"],
+              launches_server_session=server["session"]["launches"]["flash_attention"],
+              launches_server_context=server["context_launches"]["cuda"])
     k2.update(launches=captions["windowed_write"], path="oneshot live captions (WhisperNode)",
               launches_live_partials=live["windowed_write"], launches_dynamic_session=dynamic["windowed_write"],
-              launches_speech_models=speech["launches"]["windowed_write"])
+              launches_speech_models=speech["launches"]["windowed_write"],
+              launches_server_session=server["session"]["launches"]["windowed_write"])
     k3.update(launches=captions["history_attention"], path="oneshot live captions (WhisperNode)",
               launches_live_partials=live["history_attention"],
               launches_dynamic_session=dynamic["history_attention"],
-              launches_speech_models=speech["launches"]["history_attention"])
+              launches_speech_models=speech["launches"]["history_attention"],
+              launches_server_session=server["session"]["launches"]["history_attention"])
     log(f"# whole script {time.monotonic() - t_script:.1f} s")
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(smi)

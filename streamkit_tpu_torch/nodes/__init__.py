@@ -3,12 +3,15 @@
 
 The kinds ported so far: the oneshot roles, passthrough and sink, file
 reader and writer, the pacers, the text and telemetry nodes, the WAV and
-Ogg container pairs, the audio filters (gain, resampler, mixer), the Opus
+Ogg container pairs, the HTTP fetcher and the MoQ peer, subscriber and
+publisher, the audio filters (gain, resampler, mixer), the Opus
 codec pair where libopus loads, and the ML nodes (VAD, Whisper and
 SenseVoice STT, NLLB and Marian translation, the Kokoro / VITS / FastSpeech
 TTS node as ``kokoro`` and ``piper``, Matcha TTS). Each kind has the name, description and pins of the JAX
-package's. Pipelines name no device; the filters and ML nodes run on the one
-given to :func:`register_nodes`.
+package's, but for ``transport::moq::publisher``, whose input also takes
+Binary (``live_captions.yml`` publishes JSON lines through it). Pipelines
+name no device; the filters and ML nodes run on the one given to
+:func:`register_nodes`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ def register_nodes(registry: NodeRegistry, *, device=None) -> None:
     from .core_nodes.pacer import AudioPacerNode, PacerNode
     from .core_nodes.telemetry_nodes import TelemetryOutNode, TelemetryTapNode
     from .core_nodes.text import JsonSerializeNode, TextChunkerNode
+    from .transport.http import HttpFetcherNode
+    from .transport.moq import MoqPeerNode, MoqPublisherNode, MoqSubscriberNode
 
     dev = resolve_device(device)
     for cls, desc in [
@@ -46,6 +51,10 @@ def register_nodes(registry: NodeRegistry, *, device=None) -> None:
         (OggMuxerNode, "Packetizes Opus into an Ogg stream"),
         (TelemetryTapNode, "Observes packets and emits telemetry events"),
         (TelemetryOutNode, "Forwards packets to the session telemetry bus"),
+        (HttpFetcherNode, "Fetches a URL as a binary stream"),
+        (MoqPeerNode, "Bidirectional in-server MoQ media endpoint"),
+        (MoqSubscriberNode, "Subscribes to a MoQ broadcast"),
+        (MoqPublisherNode, "Publishes to MoQ subscribers"),
     ]:
         registry.register(cls.KIND, _factory(cls), description=desc)
     for cls, desc in [

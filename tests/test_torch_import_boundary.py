@@ -36,6 +36,7 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.core.stats
     import streamkit_tpu_torch.core.telemetry
     import streamkit_tpu_torch.core.types
+    import streamkit_tpu_torch.core.moq_gateway
     import streamkit_tpu_torch.device
     import streamkit_tpu_torch.engine
     import streamkit_tpu_torch.engine.audio_ring
@@ -48,6 +49,9 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.engine.oneshot
     import streamkit_tpu_torch.engine.slots
     import streamkit_tpu_torch.engine.stt_serving
+    import streamkit_tpu_torch.cli
+    import streamkit_tpu_torch.cli.client
+    import streamkit_tpu_torch.cli.main
     import streamkit_tpu_torch.models
     import streamkit_tpu_torch.models.kokoro
     import streamkit_tpu_torch.models.marian
@@ -86,6 +90,11 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.nodes.ml.tts_node
     import streamkit_tpu_torch.nodes.ml.vad_node
     import streamkit_tpu_torch.nodes.ml.whisper_node
+    import streamkit_tpu_torch.nodes.transport
+    import streamkit_tpu_torch.nodes.transport.http
+    import streamkit_tpu_torch.nodes.transport.moq
+    import streamkit_tpu_torch.moq
+    import streamkit_tpu_torch.moq.relay
     import streamkit_tpu_torch.ops
     import streamkit_tpu_torch.ops._build
     import streamkit_tpu_torch.ops.attention
@@ -95,6 +104,18 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.ops.resample
     import streamkit_tpu_torch.ops.stream_attention
     import streamkit_tpu_torch.ops.vad
+    import streamkit_tpu_torch.server
+    import streamkit_tpu_torch.server.__main__
+    import streamkit_tpu_torch.server.app
+    import streamkit_tpu_torch.server.config
+    import streamkit_tpu_torch.server.http
+    import streamkit_tpu_torch.server.observability
+    import streamkit_tpu_torch.server.permissions
+    import streamkit_tpu_torch.server.profiling
+    import streamkit_tpu_torch.server.samples
+    import streamkit_tpu_torch.server.sessions
+    import streamkit_tpu_torch.server.ui
+    import streamkit_tpu_torch.server.websocket
     import streamkit_tpu_torch.utils.jax_prng
     import streamkit_tpu_torch.utils.speechsynth
     import streamkit_tpu_torch.utils.tracing
@@ -104,6 +125,7 @@ _SCRIPT = textwrap.dedent(
         if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
         or m == "streamkit_tpu" or m.startswith("streamkit_tpu.")
         or m == "transformers" or m == "yaml"
+        or m == "aiohttp" or m.startswith("aiohttp.") or m == "cryptography" or m.startswith("cryptography.")
     )
     assert not bad, bad
     assert "jax" not in sys.modules
@@ -173,6 +195,7 @@ _SCRIPT = textwrap.dedent(
                                                                                        ffn_dim=8, layers=1))),
             ("MatchaTtsNode", lambda: MatchaTtsNode(None)),
             ("SenseVoiceNode", lambda: SenseVoiceNode(None)),
+            ("create_app", lambda: __import__("streamkit_tpu_torch.server", fromlist=["x"]).create_app()),
         ]:
             try:
                 call()
@@ -226,3 +249,75 @@ def test_api_works_without_yaml():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
+_BLOCKED = textwrap.dedent(
+    """
+    import sys
+    for name in ("aiohttp", "jax", "cryptography"):
+        sys.modules[name] = None  # any import of them now fails
+    import asyncio, json
+    from streamkit_tpu_torch.server import ServerConfig, create_app
+    from streamkit_tpu_torch.server.http import AppRunner, ClientSession
+    import streamkit_tpu_torch.cli.main
+    import streamkit_tpu_torch.server.__main__
+
+    async def main():
+        cfg = ServerConfig()
+        app = create_app(cfg, device="cpu")
+        runner = AppRunner(app)
+        port = await runner.start("127.0.0.1", 0)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            s = ClientSession(timeout=60)
+            health = await (await s.get(base + "/healthz")).json()
+            heap = await (await s.get(base + "/api/v1/profile/heap?duration_secs=0")).json()
+            trace = await (await s.get(base + "/api/v1/profile/device?duration_secs=0.1")).json()
+            ws = await s.ws_connect(base + "/api/v1/control")
+            await ws.send_json({"type": "request", "correlation_id": "c", "payload": {"action": "listsessions"}})
+            listed = (await ws.receive(timeout=10)).json()
+            await ws.close()
+        finally:
+            await runner.cleanup()
+        assert health == {"status": "ok"}, health
+        assert heap["device"] == {"device": "cpu"}, heap
+        assert "traceEvents" in trace, list(trace)
+        assert listed["payload"] == {"action": "sessionslisted", "sessions": []}, listed
+
+    asyncio.run(main())
+    print("OK")
+    """
+)
+
+
+def test_server_runs_without_aiohttp_jax_or_cryptography():
+    """The server, the CLI and the transport nodes import, and the server
+    answers HTTP, WebSocket and both profile routes, in an interpreter where
+    ``aiohttp``, ``jax`` and ``cryptography`` cannot be imported (none is on
+    the card's machine but JAX, which the port never uses)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
+def test_no_port_module_names_the_jax_package():
+    """No source of the port (nor ``chip_smoke.py``) names a module of
+    ``streamkit_tpu``: the port keeps its own copies."""
+    import re
+
+    pattern = re.compile(r"\bstreamkit_tpu\.\w")
+    offenders = []
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "streamkit_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                if pattern.search(line):
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
+    assert len(files) > 80 and not offenders, offenders

@@ -391,6 +391,79 @@ def test_whisper_node_pipeline_on_cuda_matches_cpu(batched):
 
 
 @pytest.mark.cuda
+def test_server_stt_request_on_cuda_matches_cpu():
+    """The same multipart oneshot request (a small f32 Whisper whose encoder
+    takes K1) to a server on ``cuda`` and to one on ``cpu``, through real
+    sockets and the port's client: equal Transcription lines, and K1
+    launches on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+    import io
+    import json
+    import wave
+
+    import numpy as np
+
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig
+    from streamkit_tpu_torch.server import ServerConfig, create_app
+    from streamkit_tpu_torch.server.http import AppRunner, ClientSession, FormData
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    WHISPER_CONFIGS["card-server-test"] = WhisperConfig(
+        n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=2, n_vocab=51865,
+        n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2)
+    x = np.concatenate([np.zeros(8000, np.float32), synth_speech(2.5, seed=21), np.zeros(16000, np.float32)])
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    doc = {"mode": "oneshot", "steps": [
+        {"kind": "streamkit::http_input"}, {"kind": "containers::wav::demuxer"},
+        {"kind": "plugin::native::whisper", "params": {"model_size": "card-server-test", "dtype": "float32",
+                                                       "max_tokens": 12, "language": "en"}},
+        {"kind": "core::json_serialize", "params": {"newline_delimited": True}},
+        {"kind": "streamkit::http_output"}]}
+
+    def ask(device):
+        async def main():
+            cfg = ServerConfig()
+            cfg.moq_enabled = False
+            runner = AppRunner(create_app(cfg, device=device))
+            port = await runner.start("127.0.0.1", 0)
+            try:
+                form = FormData()
+                form.add_field("config", json.dumps(doc))  # JSON is YAML
+                form.add_field("media", buf.getvalue(), filename="in.wav", content_type="audio/wav")
+                resp = await ClientSession(timeout=300).post(f"http://127.0.0.1:{port}/api/v1/process", data=form)
+                body = await resp.read()
+                assert resp.status == 200, body
+            finally:
+                await runner.cleanup()
+            return [json.loads(line)["Transcription"] for line in body.decode().splitlines() if line.strip()]
+
+        return asyncio.run(main())
+
+    try:
+        before = tattn.flash_attention.launches
+        got = ask("cuda")
+        launched = tattn.flash_attention.launches - before
+        want = ask("cpu")
+    finally:
+        WHISPER_CONFIGS.pop("card-server-test", None)
+    assert got and launched > 0 and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a["text"], a["language"]) == (b["text"], b["language"])
+        sa, sb = a["segments"][0], b["segments"][0]
+        assert (sa["start_time_ms"], sa["end_time_ms"]) == (sb["start_time_ms"], sb["end_time_ms"])
+        assert (sa["confidence"] is None) == (sb["confidence"] is None)
+        if sb["confidence"] is not None:
+            assert abs(sa["confidence"] - sb["confidence"]) <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rate,channels", [(48000, 1), (44100, 2)])
 def test_slot_table_resampler_on_cuda_matches_host(rate, channels):
     """The resampler node's slot-table route on the card (``compat: exact``,

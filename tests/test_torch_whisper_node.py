@@ -306,7 +306,8 @@ PORT_KINDS = [
     "core::telemetry_out", "core::telemetry_tap", "core::text_chunker", "plugin::native::helsinki",
     "plugin::native::kokoro", "plugin::native::matcha", "plugin::native::nllb", "plugin::native::piper",
     "plugin::native::sensevoice", "plugin::native::vad", "plugin::native::whisper", "streamkit::http_input",
-    "streamkit::http_output",
+    "streamkit::http_output", "transport::http::fetcher", "transport::moq::peer", "transport::moq::publisher",
+    "transport::moq::subscriber",
 ]
 OPUS_KINDS = ["audio::opus::decoder", "audio::opus::encoder"]  # where libopus loads
 
@@ -319,22 +320,25 @@ def test_port_registers_exactly_the_ported_kinds(registries):
 
 
 # the JAX registry's kinds the port has not ported: host nodes only (the
-# script node, the WebM muxer, the MP3 / FLAC decoders, HTTP and MoQ transport)
+# script node, the WebM muxer, the MP3 / FLAC decoders; ROADMAP item 3)
 HOST_KINDS_TO_PORT = [
     "audio::flac::decoder", "audio::mp3::decoder", "containers::webm::muxer", "core::script",
-    "transport::http::fetcher", "transport::moq::peer", "transport::moq::publisher", "transport::moq::subscriber",
 ]
+# the port's publisher also takes Binary (live_captions.yml publishes JSON
+# lines through it; the JAX engine refuses that edge): its one pin difference
+EXTRA_ACCEPTS = {"transport::moq::publisher": ["binary"]}
 
 
 def test_only_host_kinds_are_missing_from_the_port(registries):
-    """Every device model of the JAX registry is registered by the port (27
-    kinds, 29 where libopus loads); the JAX kinds still missing are the 8
-    host kinds above (those the JAX package registers here: its codec kinds
-    need their libraries, as the port's Opus kinds do)."""
+    """Every device model of the JAX registry is registered by the port, and
+    its HTTP and MoQ transport kinds (31 kinds, 33 where libopus loads); the
+    JAX kinds still missing are the 4 host kinds above (those the JAX
+    package registers here: its codec kinds need their libraries, as the
+    port's Opus kinds do)."""
     from streamkit_tpu_torch.nodes.codecs import opus_available
 
     jax_kinds, port_kinds = set(registries["jax"].kinds()), set(registries["torch"].kinds())
-    assert len(port_kinds) == (29 if opus_available() else 27)
+    assert len(port_kinds) == (33 if opus_available() else 31)
     assert port_kinds <= jax_kinds
     assert jax_kinds - port_kinds == set(HOST_KINDS_TO_PORT) & jax_kinds
 
@@ -345,7 +349,12 @@ def test_registered_kind_exists_in_jax_with_equal_pins(registries, kind):
     if kind in OPUS_KINDS and kind not in td:
         pytest.skip("libopus unavailable: the Opus kinds are not registered")
     assert kind in jd and kind in td
-    assert td[kind].input_pins == jd[kind].input_pins
+    if kind in EXTRA_ACCEPTS:
+        (tp,), (jp,) = td[kind].input_pins, jd[kind].input_pins
+        assert {k: v for k, v in tp.items() if k != "accepts_types"} == {k: v for k, v in jp.items() if k != "accepts_types"}
+        assert tp["accepts_types"] == jp["accepts_types"] + [{"type": t} for t in EXTRA_ACCEPTS[kind]]
+    else:
+        assert td[kind].input_pins == jd[kind].input_pins
     assert td[kind].output_pins == jd[kind].output_pins
     assert td[kind].supports_dynamic_pins == jd[kind].supports_dynamic_pins
     assert td[kind].description == jd[kind].description
