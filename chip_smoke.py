@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 0. Builds every native source of the port at once, one compiler each:
-   ``csrc/flash_attention.cu``, ``csrc/cache_write.cu`` and
-   ``csrc/stream_attention.cu`` with nvcc for sm_90a, ``csrc/ingest.cpp``
+   ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
+   ``csrc/cache_write.cu`` and ``csrc/stream_attention.cu`` with nvcc for
+   sm_90a, ``csrc/ingest.cpp``
    with g++, and prints ptxas's report per kernel (registers, shared
    memory, spills, warnings).
 1. Holds each hand-written kernel against its plain PyTorch version on the
@@ -126,11 +127,34 @@
    and heap routes, and the f32 node check through a ``cuda`` and a ``cpu``
    server (equal lines, K1 on the card only).
 
+15. Fine-tuning (``# train``, after the context checks): K1's backward
+   kernels (``csrc/flash_attention_bwd.cu``: dQ, which also computes D =
+   rowsum(dO∘O), then dK/dV) are held against their plain version on the
+   same inputs at f32 (1e-4 of each gradient's largest value) and bf16
+   (twice the plain version's own rounding) at the large-v3 encoder's
+   [2, 20, 1500, 64], its cross-attention at 256 × 1500 and strided views
+   of one fused [B, T, 3·H·d] buffer at d = 128; the forward with the row
+   statistic stored gives the serving launch's output bit for bit; both are
+   timed in turns with SDPA's backward (``torch.autograd.grad``, a
+   yardstick the port never calls). Then ``parallel/train.py``: a small
+   f32 config (256 encoder positions, width 128, 2 heads of 64, 2 + 2
+   layers, 256 tokens, so both attention kinds take K1) takes 3 steps on
+   the card against the same 3 on the CPU (losses, the first step's grads,
+   params), 4 K1, 4 dQ and 4 dK/dV launches a step, and a resume on the
+   card (2 steps, save, load, 1 step) equal bit for bit to the straight
+   third step; then Whisper large-v3 (random f32 weights from seed 0), 2
+   windows of 3000 mel frames and 256 tokens, 3 f32 steps on one batch (the
+   loss finite and falling) and 2 from the params cast to bf16 (finite),
+   each under the profiler (wall, device time, idle share, peak memory, the
+   top kernels) with exactly 64 K1, 64 dQ and 64 dK/dV launches.
+
 Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9,
-11, 12, 13, and each request or session of 14) and read just after; each must equal what the code implies (K1: 32
-per encode of 256 or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one for the
-encoder caches and their scales and one for the two decoder folds; K3: 32
-per fused step call). Every batcher kind these paths dispatch is registered
+11, 12, 13, each request or session of 14, each train step of 15) and read
+just after; each must equal what the code implies (K1: 32 per encode of 256
+or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one
+for the encoder caches and their scales and one for the two decoder folds;
+K3: 32 per fused step call; K1's backward kernels: 0 outside 15, one each
+per K1 launch of a train step). Every batcher kind these paths dispatch is registered
 by the port's nodes or ``SttServingEngine``, never by this script.
 Kernel times are device times by the profiler (CUDA-event times of a run of
 calls beside them, which include the gaps where the device waits for the
@@ -158,6 +182,7 @@ import torch
 SR = 16_000
 STT_GATHER_MS = 1000.0  # the whisper node's SK_STT_GATHER_MS knob: straggler bound
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # f32 on the CUDA cores, H100 SXM data sheet
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 
 
@@ -171,7 +196,15 @@ def counters():
 
     return {"flash_attention": attention.flash_attention,
             "windowed_write": cache_write.windowed_write_groups,
-            "history_attention": stream_attention.history_attention}
+            "history_attention": stream_attention.history_attention,
+            "flash_attention_backward_dq": attention.flash_attention_backward_dq,
+            "flash_attention_backward_dkv": attention.flash_attention_backward_dkv}
+
+
+# every kernel's count at 0: a path's expected counts start from it, so K1's
+# backward kernels must stay at 0 wherever nothing is trained
+ZERO_LAUNCHES = {"flash_attention": 0, "windowed_write": 0, "history_attention": 0,
+                 "flash_attention_backward_dq": 0, "flash_attention_backward_dkv": 0}
 
 
 def reset_counts() -> None:
@@ -188,7 +221,7 @@ def build_phase() -> None:
     from streamkit_tpu_torch.engine import ingest
     from streamkit_tpu_torch.ops import _build, attention, cache_write, stream_attention
 
-    sources = [attention.SOURCE, cache_write.SOURCE, stream_attention.SOURCE, ingest.SOURCE]
+    sources = [attention.SOURCE, attention.BWD_SOURCE, cache_write.SOURCE, stream_attention.SOURCE, ingest.SOURCE]
     t0 = time.monotonic()
     _build.build_all(sources)
     for src in sources:
@@ -340,6 +373,162 @@ def k1_phase():
             del q, k, v, q32, k32, v32, out, ref
     torch.cuda.empty_cache()
     return entry
+
+
+# the library flash kernel's backward pallas_calls, which the reference's
+# _lib_flash (streamkit_tpu/ops/attention.py:132) reaches under jax.vjp
+# (jax 0.9.0)
+LIB_FLASH_BWD = {
+    "dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 (_flash_attention_bwd_dq)",
+    "dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 (_flash_attention_bwd_dkv)",
+}
+
+
+def backward_bound(kind: str, b: int, h: int, tq: int, tk: int, d: int, dtype) -> tuple:
+    """(bound ms, "operations" or "bytes") of one backward kernel's own
+    work: ``dq`` 3 products of 2*Tq*Tk*d per head (S, dO V^T, dS K), reading
+    q, k, v, O, dO and lse, writing dq and D; ``dkv`` 4 (S, dO V^T, P^T dO,
+    dS^T Q), reading q, k, v, dO, lse and D, writing dk and dv; ``pair`` the
+    whole backward, 5 products (S once), reading q, k, v, O, dO and lse,
+    writing dq, dk and dv."""
+    size = torch.finfo(dtype).bits // 8
+    products, rows = {"dq": (3, (4 * tq + 2 * tk) * d * size + 8 * tq),
+                      "dkv": (4, (2 * tq + 4 * tk) * d * size + 8 * tq),
+                      "pair": (5, (3 * tq + 3 * tk) * d * size + 4 * tq)}[kind]
+    flops = products * 2 * b * h * tq * tk * d
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, b * h * rows / H100_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def autograd_route_check(q, k, v, do, scale: float) -> dict:
+    """``flash_attention`` on leaves that require grad, then ``backward()``
+    (K1 with the store, then the two backward kernels) against autograd of
+    :func:`attention_reference` on the f32 copies of the same inputs. f32:
+    within 1e-4 of each gradient's largest |g|; bf16: within twice the
+    error of autograd through the plain attention at bf16."""
+    from streamkit_tpu_torch.ops import attention as attn
+
+    def grads(fn, dtype):
+        leaves = [x.detach().to(dtype).requires_grad_() for x in (q, k, v)]
+        fn(*leaves, scale).backward(do.to(dtype))
+        return [x.grad.float() for x in leaves]
+
+    truth = grads(attn.attention_reference, torch.float32)
+    got = grads(attn.flash_attention, q.dtype)
+    plain = grads(attn.attention_reference, q.dtype) if q.dtype == torch.bfloat16 else None
+    report = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        err = (got[i] - truth[i]).abs().max().item()
+        if plain is None:
+            tol = 1e-4 * truth[i].abs().max().item()
+        else:
+            tol = 2 * (plain[i] - truth[i]).abs().max().item()
+        report[name] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"K1 autograd route {q.dtype} {name}: max |err| {err} > {tol}")
+    return report
+
+
+def k1_backward_phase() -> dict:
+    """K1's backward kernels (the dQ kernel, then the dK/dV kernel) against
+    their plain version on the same inputs (q, k, v, dO and the forward's O
+    and row statistic), the forward's row statistic against the plain one
+    (f32 within 1e-5, bf16 within 1e-3, in log2 units), the forward with the
+    statistic stored against the serving launch (bit for bit), the autograd
+    route (``flash_attention`` on inputs that require grad, then
+    ``backward()``) against autograd of the plain attention in f32, and
+    their times beside SDPA's backward. Returns the ``kernels`` entries of
+    the two backward kernels (encoder shape, f32: the train path's dtype)."""
+    import torch.nn.functional as F
+
+    from streamkit_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    entries = {}
+    # the large-v3 encoder at B = 2, its cross-attention at 256 tokens, and
+    # q, k, v as strided views of one fused [B, T, 3*H*d] buffer at d = 128
+    # with ragged 64-row tiles
+    for label, b, h, tq, tk, d in [("encoder", 2, 20, 1500, 1500, 64), ("cross", 2, 20, 256, 1500, 64),
+                                   ("fused-strided", 1, 3, 300, 300, 128)]:
+        scale = d ** -0.25
+        for dtype in (torch.float32, torch.bfloat16):
+            def rand(t, n):
+                return torch.randn(b, t, n, device="cuda", generator=g).to(dtype)
+
+            if label == "fused-strided":
+                q, k, v = (head_split(x, h) for x in rand(tq, 3 * h * d).split(h * d, dim=-1))
+            else:
+                q, k, v = head_split(rand(tq, h * d), h), head_split(rand(tk, h * d), h), head_split(rand(tk, h * d), h)
+            do = head_split(rand(tq, h * d), h)
+            out, lse = attn.flash_attention_lse(q, k, v, scale)
+            served = attn.flash_attention(q, k, v, scale)  # no store: the serving paths' launch
+            dq, dk, dv = attn.flash_attention_backward(q, k, v, out, do, lse, scale)
+            torch.cuda.synchronize()
+            ins32 = [x.float() for x in (q, k, v, out, do)]
+            ref = attn.attention_backward_reference(*ins32[:4], ins32[4], lse, scale)
+            # the row statistic the backward rebuilds P from: a wrong row
+            # would pass the check above, which feeds lse to both sides
+            lse_err = (lse - attn.attention_lse_reference(*ins32[:3], scale)[1]).abs().max().item()
+            lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
+            line = {"case": label, "shape": [b, h, tq, tk, d], "dtype": str(dtype).split(".")[-1],
+                    "forward_store_off_bit_equal": torch.equal(out, served),
+                    "lse": {"max_abs_err": lse_err, "tol": lse_tol}}
+            if not lse_err <= lse_tol:
+                raise AssertionError(f"K1 forward {label} {dtype}: row statistic max |err| {lse_err} > {lse_tol}")
+            line["autograd"] = autograd_route_check(q, k, v, do, scale)
+            if dtype == torch.bfloat16:  # the plain version at bf16: its rounding alone
+                plain16 = attn.attention_backward_reference(q, k, v, out, do, lse, scale)
+            for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                err = (got.float() - want).abs().max().item()
+                # f32: summation order over up to 1500 keys; bf16: twice the
+                # plain version's own bf16 error (its roundings of P, dS and
+                # the result) on the same inputs
+                if dtype == torch.float32:
+                    tol = 1e-4 * want.abs().max().item()
+                else:
+                    tol = 2 * (plain16[("dq", "dk", "dv").index(name)].float() - want).abs().max().item()
+                line[name] = {"max_abs_err": err, "tol": tol, "max_abs": want.abs().max().item()}
+                if not math.isfinite(err) or err > tol or got.shape != want.shape or got.dtype != dtype:
+                    raise AssertionError(f"K1 backward {label} {dtype} {name}: max |err| {err} > {tol}")
+            if not line["forward_store_off_bit_equal"]:
+                raise AssertionError(f"K1 forward {label} {dtype}: the row-statistic store changed the output")
+            if label != "fused-strided":
+                dq_fn = lambda: attn.flash_attention_backward_dq(q, k, v, out, do, lse, scale)  # noqa: E731
+                delta = dq_fn()[1]
+                dkv_fn = lambda: attn.flash_attention_backward_dkv(q, k, v, do, lse, delta, scale)  # noqa: E731
+                # SDPA's backward alone: one forward, then grads in turns with the kernels
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                o_lib = F.scaled_dot_product_attention(*leaves, scale=scale * scale)
+                lib = lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True)  # noqa: E731
+                turns = [kernel_ms(fn, iters=5) for fn in (dq_fn, dkv_fn, lib, lib, dkv_fn, dq_fn)]
+                plain = kernel_ms(lambda: attn.attention_backward_reference(q, k, v, out, do, lse, scale), iters=3)
+                times = {"dq": (turns[0]["ms"] + turns[5]["ms"]) / 2, "dkv": (turns[1]["ms"] + turns[4]["ms"]) / 2}
+                lib_ms = (turns[2]["ms"] + turns[3]["ms"]) / 2
+                for kind in ("dq", "dkv", "pair"):
+                    ms = times["dq"] + times["dkv"] if kind == "pair" else times[kind]
+                    bound, by = backward_bound(kind, b, h, tq, tk, d, dtype)
+                    line[f"{kind}_ms"], line[f"{kind}_bound_ms"], line[f"{kind}_bound_by"] = ms, bound, by
+                    line[f"{kind}_bound_share"] = bound / ms
+                line.update(library_ms=lib_ms, plain_ms=plain["ms"], turns_ms=[x["ms"] for x in turns],
+                            ratio_to_library=(times["dq"] + times["dkv"]) / lib_ms)
+                if label == "encoder" and dtype == torch.float32:  # the train path's shape and dtype
+                    errs = {"dq": line["dq"]["max_abs_err"],
+                            "dkv": max(line["dk"]["max_abs_err"], line["dv"]["max_abs_err"])}
+                    for kind in ("dq", "dkv"):
+                        name = f"flash_attention_backward_{kind}"
+                        entries[name] = {
+                            "name": name, "route": "cuda", "source": "streamkit_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "replaces": LIB_FLASH_BWD[kind], "max_abs_err": errs[kind], "ms": times[kind],
+                            "plain_ms": plain["ms"], "bound_ms": line[f"{kind}_bound_ms"],
+                            "bound_by": line[f"{kind}_bound_by"], "library_ms": lib_ms,
+                            "library": "torch.autograd.grad through scaled_dot_product_attention (dQ, dK and dV)",
+                            "shape": [b, h, tq, tk, d], "dtype": "float32"}
+                del leaves, o_lib, delta
+            log("# k1 backward " + json.dumps(line))
+            del q, k, v, do, out, lse, served, dq, dk, dv, ref, ins32
+    torch.cuda.empty_cache()
+    return entries
 
 
 def cold_ms(fn, flush: torch.Tensor, iters: int = 10) -> float:
@@ -558,7 +747,6 @@ def tonal_audio(rng, n: int) -> np.ndarray:
 
 def context_phase():
     from streamkit_tpu_torch.models.whisper import WhisperConfig, init_params, transcribe_window
-    from streamkit_tpu_torch.ops.attention import flash_attention
 
     cfg = WhisperConfig(n_mels=80, n_audio_ctx=256, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
                         n_vocab=51865, n_text_ctx=32, n_text_state=128, n_text_head=2, n_text_layer=2)
@@ -575,15 +763,175 @@ def context_phase():
     window = cfg.n_audio_ctx * 320
     rng = np.random.RandomState(7)
     audio = np.stack([tonal_audio(rng, window) for _ in range(3)])
-    before = flash_attention.launches
+    reset_counts()
     tok_g, len_g = transcribe_window(gpu, cfg, audio, window_samples=window, max_tokens=12)
-    launched = flash_attention.launches - before
+    counts = read_counts()
+    launched = counts["flash_attention"]
     tok_c, len_c = transcribe_window(cpu, cfg, audio, window_samples=window, max_tokens=12)
     log(f"# context f32 cuda tokens {tok_g.tolist()} lengths {len_g.tolist()}; flash launches {launched}")
     if not (np.array_equal(tok_g, tok_c) and np.array_equal(len_g, len_c)):
         raise AssertionError(f"cuda tokens {tok_g.tolist()} != cpu tokens {tok_c.tolist()}")
-    if launched != cfg.n_audio_layer:
-        raise AssertionError(f"expected {cfg.n_audio_layer} flash launches, saw {launched}")
+    if counts != {**ZERO_LAUNCHES, "flash_attention": cfg.n_audio_layer}:
+        raise AssertionError(f"expected {cfg.n_audio_layer} flash launches and no other, saw {counts}")
+
+
+# ---------------------------------------------------------------------------
+# 2c. fine-tuning: parallel/train.py through K1 and its backward kernels
+# ---------------------------------------------------------------------------
+TRAIN_LR = 1e-5  # large-v3 at a usual fine-tuning rate
+SMALL_TRAIN = dict(n_mels=80, n_audio_ctx=256, n_audio_state=128, n_audio_head=2, n_audio_layer=2, n_vocab=512,
+                   n_text_ctx=256, n_text_state=128, n_text_head=2, n_text_layer=2)
+
+
+def train_batch(cfg, b: int, t: int, device: str, seed: int):
+    """(mel, tokens_in, tokens_out, mask) from a seed: 30 s of random mel at
+    Whisper's log-mel scale, random targets, every position counted."""
+    rng = np.random.RandomState(seed)
+    mel = torch.from_numpy((rng.randn(b, 2 * cfg.n_audio_ctx, cfg.n_mels) * 0.3).astype(np.float32))
+    tin = torch.from_numpy(rng.randint(0, cfg.n_vocab, (b, t)))
+    tout = torch.from_numpy(rng.randint(0, cfg.n_vocab, (b, t)))
+    return tuple(x.to(device) for x in (mel, tin, tout, torch.ones(b, t)))
+
+
+def train_launches(cfg) -> dict:
+    """One train step's launches: K1 and each backward kernel once per
+    encoder layer and once per cross-attention (the tokens take the gate)."""
+    n = cfg.n_audio_layer + cfg.n_text_layer
+    return {**ZERO_LAUNCHES, "flash_attention": n, "flash_attention_backward_dq": n,
+            "flash_attention_backward_dkv": n}
+
+
+def small_train_check() -> dict:
+    """The small f32 config: 3 steps on the card against the same 3 on the
+    CPU (losses, the first step's grads, the params), the launches of each
+    card step, and a resume on the card (2 steps, save, load, 1 step) equal
+    to the third step without the reload."""
+    import tempfile
+
+    from streamkit_tpu_torch.models.whisper import WhisperConfig, seeded_params
+    from streamkit_tpu_torch.parallel import init_train_state, make_train_step
+    from streamkit_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+
+    cfg, lr = WhisperConfig(**SMALL_TRAIN), 1e-3
+    step = make_train_step(cfg, lr)
+    report = {"losses": {}, "launches": []}
+    grads, states = {}, {}
+    # cuDNN's deterministic convolution algorithms, so the resumed step can
+    # equal the straight one bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev in ("cpu", "cuda"):
+            batch = train_batch(cfg, 2, 256, dev, seed=3)
+            state = init_train_state(seeded_params(cfg, device=dev), lr)
+            losses = []
+            for i in range(3):
+                if dev == "cuda":
+                    reset_counts()
+                if i == 2 and dev == "cuda":  # the state after 2 steps, saved and loaded back
+                    with tempfile.TemporaryDirectory() as tmp:
+                        save_train_state(tmp, state)
+                        resumed = load_train_state(tmp, state)
+                state, loss = step(state, *batch)
+                losses.append(loss.item())
+                if dev == "cuda":
+                    report["launches"].append(read_counts())
+                if i == 0:
+                    grads[dev] = {n: p.grad.detach().cpu() for n, p in state.params.named_parameters()}
+            report["losses"][dev] = losses
+            states[dev] = state
+        resumed, loss_r = step(resumed, *batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = train_launches(cfg)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(report["losses"]["cuda"], report["losses"]["cpu"]))
+    grad_err = max((grads["cuda"][n] - g).abs().max().item() / g.abs().max().item()
+                   for n, g in grads["cpu"].items())
+    diffs = [(a.detach().cpu() - b.detach()).abs() for a, b in
+             zip(states["cuda"].params.parameters(), states["cpu"].params.parameters())]
+    param_err = max(d.max().item() for d in diffs)
+    near = sum(int((d <= 1e-6).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    resume_equal = loss_r.item() == report["losses"]["cuda"][2] and all(
+        torch.equal(a, b) for a, b in zip(resumed.params.parameters(), states["cuda"].params.parameters()))
+    report.update(loss_rel_err=loss_err, grad_err_of_leaf_max=grad_err, param_max_abs_err=param_err,
+                  params_within_1e6=near, resume_bit_equal=resume_equal, expected_launches=want)
+    log("# train small f32 " + json.dumps(report))
+    # limits as the CPU tests hold the port to the JAX package: the loss
+    # within 1e-5 relative, each grad leaf within 1e-4 of its largest |g|,
+    # params within 3 lr with 99.9% of them within 1e-6
+    if loss_err > 1e-5 or grad_err > 1e-4 or param_err > 3 * lr or near < 0.999:
+        raise AssertionError(f"train step: card against CPU out of limits: {report}")
+    if any(c != want for c in report["launches"]) or not resume_equal:
+        raise AssertionError(f"train step: launches {report['launches']} (want {want}) or resume {resume_equal}")
+    return report
+
+
+def large_train_steps(state, step, batch, n: int, label: str):
+    """``n`` steps at full width, each under the profiler (device time, idle
+    share) with its launches counted from 0 and its peak memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for _ in range(n):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            state, loss = step(state, *batch)
+            loss = loss.item()  # waits for the step
+            wall = time.monotonic() - t0
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        by_name = {}
+        for e in kernels:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+        row = {"loss": loss, "wall_s": wall, "device_ms": device_ms, "idle_share": 1 - device_ms / (wall * 1e3),
+               "kernels": len(kernels), "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": read_counts(), "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
+        log(f"# train large-v3 {label} step " + json.dumps(row))
+        out.append(row)
+    return out, state
+
+
+def train_phase() -> dict:
+    """Fine-tuning through the port's ``parallel/train.py``: the small-config
+    check, then Whisper large-v3 (random f32 weights from seed 0) at B = 2
+    windows of 3000 mel frames and 256 tokens: 3 f32 steps on one batch (the
+    loss finite and falling), then 2 steps from the params cast to bf16 (the
+    loss finite). Returns the launches of the full-width run."""
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, seeded_params
+    from streamkit_tpu_torch.parallel import init_train_state, make_train_step
+
+    small = small_train_check()
+    cfg = WHISPER_CONFIGS["large-v3"]
+    t0 = time.monotonic()
+    params = seeded_params(cfg, torch.float32, device="cuda")
+    init_s = time.monotonic() - t0
+    step = make_train_step(cfg, TRAIN_LR)
+    batch = train_batch(cfg, 2, 256, "cuda", seed=11)
+    f32, state = large_train_steps(init_train_state(params, TRAIN_LR), step, batch, 3, "f32")
+    # bf16: the trained params cast, a fresh AdamW (the f32 moments freed first)
+    del state
+    for p in params.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    params.to(torch.bfloat16)
+    batch = (batch[0].to(torch.bfloat16), *batch[1:])
+    bf16, state = large_train_steps(init_train_state(params, TRAIN_LR), step, batch, 2, "bf16")
+    del state, params, batch
+    torch.cuda.empty_cache()
+    want = train_launches(cfg)
+    losses = [r["loss"] for r in f32 + bf16]
+    log(f"# train large-v3: init {init_s:.1f} s; f32 losses {losses[:3]}, bf16 losses {losses[3:]}; "
+        f"launches per step {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[2] < losses[1] < losses[0]:
+        raise AssertionError(f"train large-v3: losses {losses} are not finite or do not fall over the f32 steps")
+    if any(r["launches"] != want for r in f32 + bf16):
+        raise AssertionError(f"train large-v3: launches {[r['launches'] for r in f32 + bf16]}, want {want} a step")
+    total = {name: sum(r["launches"][name] for r in f32 + bf16) for name in ZERO_LAUNCHES}
+    return {"small": small, "f32": f32, "bf16": bf16, "launches": total, "init_s": init_s}
 
 
 # ---------------------------------------------------------------------------
@@ -789,8 +1137,8 @@ def segment_final_path(resources):
     want_b, want = per * encodes, per * (encodes + window_encodes)
     log(f"# flash_attention launches {counts['flash_attention']} over {encodes} batched + {window_encodes} "
         f"unbatched encodes (expected {want}; batched {counts_b['flash_attention']}, expected {want_b})")
-    if (counts_b["flash_attention"] != want_b or counts["flash_attention"] != want or want_b == 0
-            or counts["windowed_write"] or counts["history_attention"]):
+    if (counts_b != {**ZERO_LAUNCHES, "flash_attention": want_b} or want_b == 0
+            or counts != {**ZERO_LAUNCHES, "flash_attention": want}):
         raise AssertionError(f"segment-final path launches {counts} (batched {counts_b}), "
                              f"expected {want} flash_attention only")
     return counts
@@ -835,7 +1183,7 @@ def live_captions_path(resources, n_sessions: int = 2, speech_s: float = 8.0):
         show([r for r in rows if r["is_final"]], f"live request {i} final")
         check_transcripts(rows, secs, f"live request {i}", partials=True)
     calls = kind_calls(stats, "stream_step:")
-    want = {"flash_attention": flash_per_encode() * (kind_calls(stats, "whisper_ring:")
+    want = {**ZERO_LAUNCHES, "flash_attention": flash_per_encode() * (kind_calls(stats, "whisper_ring:")
                                                       + kind_calls(stats, "whisper_detect:")),
             "windowed_write": 2 * calls, "history_attention": flash_per_encode() * calls}
     log("# live batcher " + json.dumps(stats))
@@ -854,7 +1202,6 @@ def node_context_phase():
     from streamkit_tpu_torch.core import ResourceManager
     from streamkit_tpu_torch.engine import DeviceBatcher
     from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig
-    from streamkit_tpu_torch.ops.attention import flash_attention
     from streamkit_tpu_torch.utils.speechsynth import synth_speech
 
     WHISPER_CONFIGS["node-check"] = WhisperConfig(
@@ -874,18 +1221,19 @@ def node_context_phase():
                     batcher.stop()
                 return rows
 
-            before = flash_attention.launches
+            reset_counts()
             got[device] = asyncio.run(run())
-            k1[device] = flash_attention.launches - before
+            k1[device] = read_counts()
         g, c = got["cuda"], got["cpu"]
         same = len(g) == len(c) and all(
             {k: v for k, v in a.items() if k != "confidence"} == {k: v for k, v in b.items() if k != "confidence"}
             and (a["confidence"] is None) == (b["confidence"] is None)
             and (a["confidence"] is None or abs(a["confidence"] - b["confidence"]) <= 1e-4)
             for a, b in zip(g, c))
-        report[label] = {"lines": len(g), "rows": g, "flash_launches": k1}
+        report[label] = {"lines": len(g), "rows": g, "flash_launches": {d: c["flash_attention"] for d, c in k1.items()}}
         check_transcripts(g, len(audio) / SR, f"node context {label}")
-        if not same or k1["cuda"] == 0 or k1["cpu"] != 0:
+        n = k1["cuda"]["flash_attention"]
+        if not same or n == 0 or k1["cuda"] != {**ZERO_LAUNCHES, "flash_attention": n} or k1["cpu"] != ZERO_LAUNCHES:
             raise AssertionError(f"node context {label}: cuda {g} != cpu {c} (K1 launches {k1})")
     WHISPER_CONFIGS.pop("node-check")
     log("# node context " + json.dumps(report))
@@ -957,7 +1305,7 @@ def stream_context_phase():
             ok = report[w]["max_abs_err"] <= 1e-4
         if not ok:
             raise AssertionError(f"stream context: {w} differs between cuda and cpu: {report}")
-    want = {"flash_attention": 0, "windowed_write": 2 * n_steps, "history_attention": cfg.n_audio_layer * n_steps}
+    want = {**ZERO_LAUNCHES, "windowed_write": 2 * n_steps, "history_attention": cfg.n_audio_layer * n_steps}
     log("# stream context " + json.dumps(report))
     if report["vad_max_abs_err"] > 1e-4 or counts != want or int(tg._n_tok.min()) <= 4:
         raise AssertionError(f"stream context: launches {counts} (want {want}), {report}")
@@ -1046,7 +1394,7 @@ def live_partials_path(cfg_layers: int = 32):
             "fused_call_ms_mean": 1e3 * float(np.mean(walls)), "fused_call_ms_median": 1e3 * float(np.median(walls)),
             "fused_call_ms_max": 1e3 * float(np.max(walls)), "finals_stream": out["finals_stream"],
             "finals_fallback": out["finals_fallback"], "batcher": out["stats"]}))
-    want = {"flash_attention": cfg_layers * flash_encodes, "windowed_write": 2 * calls,
+    want = {**ZERO_LAUNCHES, "flash_attention": cfg_layers * flash_encodes, "windowed_write": 2 * calls,
             "history_attention": cfg_layers * calls}
     log(f"# live-partials path: launches {counts}, expected {want}; wall {t_path:.1f} s")
     if counts != want or calls == 0:
@@ -1342,7 +1690,7 @@ def ogg_opus_path(resources, opus: bool) -> dict:
             show([r for r in rows if r["is_final"]], f"ogg {label} final")
             check_transcripts(rows, 30.0, f"ogg {label}")
             encodes = kind_calls(stats, "whisper_ring:") + kind_calls(stats, "whisper_detect:")
-            want = {"flash_attention": flash_per_encode() * encodes, "windowed_write": 0, "history_attention": 0}
+            want = {**ZERO_LAUNCHES, "flash_attention": flash_per_encode() * encodes}
             report[label] = {"kinds": kinds, "wall_s": wall, "lines": len(rows), "encodes": encodes,
                              "launches": counts, "batcher": stats}
             log("# ogg " + json.dumps({label: report[label]}))
@@ -1476,7 +1824,7 @@ def dynamic_session_path(resources, opus: bool, speed: float = 4.0) -> dict:
               "lines": len(rows), "launches": counts, "states": states, "batcher": stats}
     log("# dynamic session " + json.dumps(report))
     show([r for r in rows if r["is_final"]], "dynamic session final")
-    want = {"flash_attention": flash_per_encode() * encodes, "windowed_write": 2 * calls,
+    want = {**ZERO_LAUNCHES, "flash_attention": flash_per_encode() * encodes, "windowed_write": 2 * calls,
             "history_attention": flash_per_encode() * calls}
     if counts != want or calls == 0:
         raise AssertionError(f"dynamic session launched {counts}, expected {want}")
@@ -1759,7 +2107,7 @@ def cascade_phase(opus: bool) -> dict:
             runs[dev] = asyncio.run(run())
         (card, wall, counts, stats), (host, wall_cpu, _, _) = runs["cuda"], runs["cpu"]
         encodes = kind_calls(stats, "whisper_ring:") + kind_calls(stats, "whisper_detect:")
-        want = {"flash_attention": per_encode * encodes, "windowed_write": 0, "history_attention": 0}
+        want = {**ZERO_LAUNCHES, "flash_attention": per_encode * encodes}
         entry = {"wall_s": wall, "wall_cpu_s": wall_cpu, "request_wall_s": [r[2] for r in card], "encodes": encodes,
                  "launches": counts, "batcher": stats}
         if name == "speech_translate.yml":
@@ -1837,7 +2185,6 @@ def cascade_phase(opus: bool) -> dict:
 KOKORO_DIR = os.path.join(SAMPLES, "kokoro-golden")
 KOKORO_ATOL = 1e-4  # f32 audio, card against CPU: cuDNN's and the CPU's convolutions, 4 LSTM scans
 MEL_ATOL = 1e-3  # f32 mel (peaks near 6) after 10 Euler steps, card against CPU
-ZERO_LAUNCHES = {"flash_attention": 0, "windowed_write": 0, "history_attention": 0}
 
 
 def kokoro_texts(n: int = 8) -> list:
@@ -2356,7 +2703,7 @@ def server_phase() -> dict:
                 check_transcripts(rows, sec, f"server request {i}")
                 if any(r["confidence"] is None for r in rows if r["is_final"]):
                     raise AssertionError(f"server request {i}: a ring-decode final without a confidence")
-            want = {"flash_attention": per * encodes, "windowed_write": 0, "history_attention": 0}
+            want = {**ZERO_LAUNCHES, "flash_attention": per * encodes}
             kinds = {k: {f: v[f] - before["kinds"].get(k, {}).get(f, 0) for f in ("calls", "items")}
                      for k, v in stats["kinds"].items()}
             report["oneshot"] = {"warm_request_s": report["warm_request_s"], "wall_s": report["oneshot_wall_s"],
@@ -2393,7 +2740,7 @@ def server_phase() -> dict:
             show([r for r in rows if r["is_final"]], "server fetcher final")
             check_transcripts(rows, secs[0], "server fetcher session")
             encodes = sum(kind_calls(stats, p) - kind_calls(before, p) for p in ("whisper_ring:", "whisper_detect:"))
-            want = {"flash_attention": per * encodes, "windowed_write": 0, "history_attention": 0}
+            want = {**ZERO_LAUNCHES, "flash_attention": per * encodes}
             report["fetcher"] = {"wall_s": wall, "lines": len(rows), "encodes": encodes, "launches": counts}
             log("# server fetcher " + json.dumps(report["fetcher"]))
             if counts != want or encodes == 0:
@@ -2495,7 +2842,8 @@ def server_phase() -> dict:
             log("# server session " + json.dumps(report["session"]))
             show([r for r in rows if r["is_final"]], "server session final")
             check_transcripts(rows, speech8_s, "server live session", partials=True)
-            want = {"flash_attention": per * encodes, "windowed_write": 2 * calls, "history_attention": per * calls}
+            want = {**ZERO_LAUNCHES, "flash_attention": per * encodes, "windowed_write": 2 * calls,
+                    "history_attention": per * calls}
             if counts != want or calls == 0:
                 raise AssertionError(f"server live session launched {counts}, expected {want}")
             if trace_status != 200 or b"history_attention" not in trace:
@@ -2528,18 +2876,20 @@ def server_phase() -> dict:
                 reset_counts()
                 _, body, _ = await post_process(url, doc, wav_body(check_audio))
                 got[label] = transcripts(body)
-                launched[label] = read_counts()["flash_attention"]
-            report["context_launches"] = launched
+                launched[label] = read_counts()
+            report["context_launches"] = {label: c["flash_attention"] for label, c in launched.items()}
             g, c = got["cuda"], got["cpu"]
             same = len(g) == len(c) and all(
                 {k: v for k, v in a.items() if k != "confidence"} == {k: v for k, v in b.items() if k != "confidence"}
                 and (a["confidence"] is None) == (b["confidence"] is None)
                 and (a["confidence"] is None or abs(a["confidence"] - b["confidence"]) <= 1e-4)
                 for a, b in zip(g, c))
-            report["context"] = {"lines": len(g), "rows": g, "flash_launches": launched}
+            n = report["context_launches"]["cuda"]
+            report["context"] = {"lines": len(g), "rows": g, "flash_launches": report["context_launches"]}
             log("# server context " + json.dumps(report["context"]))
             check_transcripts(g, len(check_audio) / SR, "server context")
-            if not same or launched["cuda"] == 0 or launched["cpu"] != 0:
+            if (not same or n == 0 or launched["cuda"] != {**ZERO_LAUNCHES, "flash_attention": n}
+                    or launched["cpu"] != ZERO_LAUNCHES):
                 raise AssertionError(f"server context: cuda {g} != cpu {c} (K1 launches {launched})")
         finally:
             if cpu_runner is not None:
@@ -2571,12 +2921,16 @@ def main() -> int:
     build_phase()
     t0 = time.monotonic()
     k1, k2, k3 = k1_phase(), k2_phase(8), k3_phase(8)
+    bwd = k1_backward_phase()
     log(f"# kernel phase {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     context_phase()
     stream_context_phase()
     node_context_phase()
     log(f"# context phase {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    train = train_phase()
+    log(f"# train phase (small f32 card against CPU, large-v3 f32 and bf16 steps) {time.monotonic() - t0:.1f} s")
     from streamkit_tpu_torch.core import ResourceManager
 
     resources = ResourceManager()  # one model load for both node paths
@@ -2630,7 +2984,12 @@ def main() -> int:
               launches_server_oneshot=server["oneshot"]["launches"]["flash_attention"],
               launches_server_fetcher=server["fetcher"]["launches"]["flash_attention"],
               launches_server_session=server["session"]["launches"]["flash_attention"],
-              launches_server_context=server["context_launches"]["cuda"])
+              launches_server_context=server["context_launches"]["cuda"],
+              launches_train=train["launches"]["flash_attention"])
+    for name, entry in bwd.items():
+        entry.update(launches=train["launches"][name],
+                     path="train steps (parallel/train.py, large-v3, 3 f32 + 2 bf16)",
+                     launches_train_small=sum(c[name] for c in train["small"]["launches"]))
     k2.update(launches=captions["windowed_write"], path="oneshot live captions (WhisperNode)",
               launches_live_partials=live["windowed_write"], launches_dynamic_session=dynamic["windowed_write"],
               launches_speech_models=speech["launches"]["windowed_write"],
@@ -2641,7 +3000,7 @@ def main() -> int:
               launches_speech_models=speech["launches"]["history_attention"],
               launches_server_session=server["session"]["launches"]["history_attention"])
     log(f"# whole script {time.monotonic() - t_script:.1f} s")
-    log(json.dumps({"kernels": [k1, k2, k3]}))
+    log(json.dumps({"kernels": [k1, k2, k3, *bwd.values()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

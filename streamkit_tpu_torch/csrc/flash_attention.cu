@@ -54,6 +54,14 @@
 // f32: one thread per query row on the CUDA cores (the tensor cores have no
 // full-f32 mode), 32-column K/V tiles in shared memory, the same online
 // softmax. It serves f32 models and the parity runs.
+//
+// Row statistic for the backward (csrc/flash_attention_bwd.cu): given a
+// non-null `lse` ([B, H, Tq] f32, contiguous), both paths also store each
+// row's base-2 log-sum-exp of the scaled scores,
+//   lse[b, h, r] = m2 + log2(l) = log2(sum_j 2^(S[r, j] * scale_log2)),
+// where S is the raw product q.k, m2 the row max in those base-2 units and
+// l the row sum relative to it, so P = 2^(S * scale_log2 - lse) exactly.
+// With `lse` null nothing else changes: the output is the same, bit for bit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -144,7 +152,7 @@ template <int HD, int NC>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_fwd_bf16(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H, int Tq, int Tk,
-    long long ob, long long oh, long long ot, float scale_log2) {
+    long long ob, long long oh, long long ot, float scale_log2, float* __restrict__ lse) {
   constexpr int NSUB = HD / 64;
   constexpr int STAGES = stages<HD, NC>();
   constexpr int BM = 64 * NC;        // query rows per CTA
@@ -308,6 +316,11 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_fwd_bf16(
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     const int r0 = q0 + cw * 64 + warp * 16 + g, r1 = r0 + 8;
+    if (lse != nullptr && t4 == 0) {
+      float* lp = lse + static_cast<long long>(blockIdx.y) * Tq;
+      if (r0 < Tq) lp[r0] = fmaf(m0, scale_log2, log2f(l0));
+      if (r1 < Tq) lp[r1] = fmaf(m1, scale_log2, log2f(l1));
+    }
     __nv_bfloat16* op = o + b * ob + h * oh;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -322,7 +335,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_fwd_bf16(
 template <int HD>
 __global__ void __launch_bounds__(BQ_F32) flash_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int H, int Tq, int Tk, Strides st, float scale_log2) {
+    float* __restrict__ o, int H, int Tq, int Tk, Strides st, float scale_log2, float* __restrict__ lse) {
   __shared__ float Ks[BK_F32][HD];
   __shared__ float Vs[BK_F32][HD];
 
@@ -379,6 +392,7 @@ __global__ void __launch_bounds__(BQ_F32) flash_fwd_f32(
     const float inv = 1.f / l;
 #pragma unroll
     for (int d = 0; d < HD; ++d) out[d] = acc[d] * inv;
+    if (lse != nullptr) lse[static_cast<long long>(blockIdx.y) * Tq + r] = m + log2f(l);
   }
 }
 
@@ -428,7 +442,7 @@ int sm_count() {
 
 template <int HD, int NC>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
-                const Strides& st, float scale_log2, cudaStream_t stream) {
+                const Strides& st, float scale_log2, float* lse, cudaStream_t stream) {
   constexpr int BM = 64 * NC;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
@@ -443,7 +457,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((Tq + BM - 1) / BM, B * H);
   flash_fwd_bf16<HD, NC><<<grid, 128 * (NC + 1), smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, Tq,
-                                                                  Tk, st.ob, st.oh, st.ot, scale_log2);
+                                                                  Tk, st.ob, st.oh, st.ot, scale_log2, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -460,15 +474,15 @@ int consumers(int B, int H, int Tq) {
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
-           const Strides& st, float scale_log2, cudaStream_t stream) {
+           const Strides& st, float scale_log2, float* lse, cudaStream_t stream) {
   if (dtype == 1) {
-    if (consumers(B, H, Tq) == 3) return launch_bf16<HD, 3>(q, k, v, o, B, H, Tq, Tk, st, scale_log2, stream);
-    return launch_bf16<HD, 2>(q, k, v, o, B, H, Tq, Tk, st, scale_log2, stream);
+    if (consumers(B, H, Tq) == 3) return launch_bf16<HD, 3>(q, k, v, o, B, H, Tq, Tk, st, scale_log2, lse, stream);
+    return launch_bf16<HD, 2>(q, k, v, o, B, H, Tq, Tk, st, scale_log2, lse, stream);
   }
   dim3 grid((Tq + BQ_F32 - 1) / BQ_F32, B * H);
   flash_fwd_f32<HD><<<grid, BQ_F32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Tq, Tk, st, scale_log2);
+      static_cast<float*>(o), H, Tq, Tk, st, scale_log2, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,20 +491,23 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o, int 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; head_dim is
-// contiguous. Returns 0 on success, else a cudaError_t of the launch or one
-// of the negative codes above (sk_error_string names each).
+// contiguous. `lse`: null, or a contiguous [B, H, Tq] f32 buffer for the
+// row statistic (see the header). Returns 0 on success, else a cudaError_t
+// of the launch or one of the negative codes above (sk_error_string names
+// each).
 int sk_flash_attention(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H,
                        int Tq, int Tk, int hd, long long qsb, long long qsh, long long qst, long long ksb,
                        long long ksh, long long kst, long long vsb, long long vsh, long long vst,
-                       long long osb, long long osh, long long ost, float scale_log2, void* stream) {
+                       long long osb, long long osh, long long ost, float scale_log2, float* lse,
+                       void* stream) {
   const Strides st{qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 64:
-      return launch<64>(dtype, q, k, v, o, B, H, Tq, Tk, st, scale_log2, s);
+      return launch<64>(dtype, q, k, v, o, B, H, Tq, Tk, st, scale_log2, lse, s);
     case 128:
-      return launch<128>(dtype, q, k, v, o, B, H, Tq, Tk, st, scale_log2, s);
+      return launch<128>(dtype, q, k, v, o, B, H, Tq, Tk, st, scale_log2, lse, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -313,7 +313,9 @@ def decode_logits(
     t = tokens.shape[-1]
     if t > cfg.n_text_ctx:
         raise ValueError(f"{t} tokens exceed n_text_ctx={cfg.n_text_ctx}")
-    x = d["tok_emb"][tokens] + d["pos_emb"][:t]
+    # F.embedding: the same gather, with a deterministic backward (indexing's
+    # accumulating backward sums in a varying order), so a train step repeats
+    x = F.embedding(tokens, d["tok_emb"]) + d["pos_emb"][:t]
     causal = torch.triu(
         torch.full((t, t), float("-inf"), dtype=torch.float32, device=x.device), diagonal=1
     )

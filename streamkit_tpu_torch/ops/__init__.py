@@ -1,9 +1,15 @@
 # SPDX-License-Identifier: Apache-2.0
 """Device ops ported so far: PCM conversion, gain, mix and channel
-conversion, the streaming resampler, log-mel, flash attention, VAD, the
+conversion, the streaming resampler, log-mel, flash attention (forward and backward), VAD, the
 streaming caches' windowed write and int8-history attention."""
 
-from .attention import attention_reference, flash_attention
+from .attention import (
+    FlashAttention,
+    attention_backward_reference,
+    attention_reference,
+    flash_attention,
+    flash_attention_backward,
+)
 from .cache_write import windowed_write, windowed_write_groups, windowed_write_many
 from .stream_attention import history_attention
 from .dsp import apply_gain, convert_channels, f32_to_s16le, mix_frames, s16le_to_f32

@@ -1,2 +1,3 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Utilities: the offline speech-like audio synthesizer and span tracing."""
+"""Utilities: the offline speech-like audio synthesizer, span tracing and
+checkpoints (``utils.checkpoint``)."""

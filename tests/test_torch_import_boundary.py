@@ -104,6 +104,8 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.ops.resample
     import streamkit_tpu_torch.ops.stream_attention
     import streamkit_tpu_torch.ops.vad
+    import streamkit_tpu_torch.parallel
+    import streamkit_tpu_torch.parallel.train
     import streamkit_tpu_torch.server
     import streamkit_tpu_torch.server.__main__
     import streamkit_tpu_torch.server.app
@@ -119,6 +121,7 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.utils.jax_prng
     import streamkit_tpu_torch.utils.speechsynth
     import streamkit_tpu_torch.utils.tracing
+    import streamkit_tpu_torch.utils.checkpoint
     new = set(sys.modules) - before
     bad = sorted(
         m for m in new
@@ -157,6 +160,7 @@ _SCRIPT = textwrap.dedent(
         from streamkit_tpu_torch.models.sensevoice import SenseVoiceConfig, sensevoice_init_params
         from streamkit_tpu_torch.nodes.ml.matcha_node import MatchaTtsNode
         from streamkit_tpu_torch.nodes.ml.sensevoice_node import SenseVoiceNode
+        from streamkit_tpu_torch.parallel import train_state_from_numpy
         small = dict(d_model=8, encoder_layers=1, decoder_layers=1, heads=2, ffn_dim=8, max_positions=8)
 
         for name, call in [
@@ -196,6 +200,7 @@ _SCRIPT = textwrap.dedent(
             ("MatchaTtsNode", lambda: MatchaTtsNode(None)),
             ("SenseVoiceNode", lambda: SenseVoiceNode(None)),
             ("create_app", lambda: __import__("streamkit_tpu_torch.server", fromlist=["x"]).create_app()),
+            ("train_state_from_numpy", lambda: train_state_from_numpy({}, {}, {}, 0, WHISPER_CONFIGS["tiny"])),
         ]:
             try:
                 call()

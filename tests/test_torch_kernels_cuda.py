@@ -754,3 +754,198 @@ def test_sensevoice_on_cuda_matches_cpu(widths):
     assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-3
     assert out["cuda"][1] == out["cpu"][1] and any(out["cpu"][1])
     assert low.dtype == torch.float32 and bool(torch.isfinite(low).all()) and np.prod(low.shape) == 3 * 18 * cfg.vocab_size
+
+
+def _bwd_inputs(b, h, tq, tk, d, dtype, fused, seed=0):
+    """q, k, v, dO as head-split views: of separate [B, T, H*d] buffers, or
+    (``fused``, Tq == Tk) of one [B, T, 3*H*d] buffer."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def split(x):
+        return x.reshape(b, x.shape[1], -1, d).transpose(1, 2)
+
+    def rand(t, n):
+        return torch.randn(b, t, n, device="cuda", generator=g).to(dtype)
+
+    if fused:
+        q, k, v = (split(x) for x in rand(tq, 3 * h * d).split(h * d, dim=-1))
+    else:
+        q, k, v = split(rand(tq, h * d)), split(rand(tk, h * d)), split(rand(tk, h * d))
+    return q, k, v, split(rand(tq, h * d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,tq,tk,d,fused",
+    [(2, 4, 300, 300, 64, False), (1, 3, 256, 1500, 64, False), (1, 2, 129, 77, 128, False),
+     (1, 3, 300, 300, 128, True), (3, 1, 37, 64, 64, True)],
+    ids=["self", "cross-256x1500", "ragged-d128", "fused-d128", "fused-short"],
+)
+def test_flash_attention_backward_matches_plain(dtype, b, h, tq, tk, d, fused):
+    """K1's backward kernels against the plain backward on the same inputs
+    (q, k, v, dO, and O and lse from the forward with the store on): f32
+    within 1e-4 of each gradient's largest |g| (summation order over the
+    keys); bf16 within twice the plain version's own rounding to bf16. One
+    launch of each kernel; dq, dk, dv as [B, H, T, d] views of [B, T, H, d]
+    buffers; the forward's output equal bit for bit with the store off, and
+    its row statistic within 1e-5 (f32) or 1e-3 (bf16) of the plain one, in
+    log2 units (both sides here read the kernel's lse, so a wrong row would
+    pass the gradient check alone)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if fused:
+        tk = tq
+    q, k, v, do = _bwd_inputs(b, h, tq, tk, d, dtype, fused)
+    scale = d ** -0.25
+    out, lse = tattn.flash_attention_lse(q, k, v, scale)
+    assert torch.equal(out, tattn.flash_attention(q, k, v, scale))
+    want_lse = tattn.attention_lse_reference(q.float(), k.float(), v.float(), scale)[1]
+    assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
+    assert (lse - want_lse).abs().max().item() <= (1e-5 if dtype == torch.float32 else 1e-3)
+    before = (tattn.flash_attention_backward_dq.launches, tattn.flash_attention_backward_dkv.launches)
+    grads = tattn.flash_attention_backward(q, k, v, out, do, lse, scale)
+    torch.cuda.synchronize()
+    assert (tattn.flash_attention_backward_dq.launches, tattn.flash_attention_backward_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = tattn.attention_backward_reference(q.float(), k.float(), v.float(), out.float(), do.float(), lse, scale)
+    plain = tattn.attention_backward_reference(q, k, v, out, do, lse, scale)
+    for got, want, low, like in zip(grads, ref, plain, (q, k, v)):
+        assert got.shape == like.shape and got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+        if dtype == torch.float32:
+            tol = 1e-4 * want.abs().max().item()
+        else:
+            tol = 2 * (low.float() - want).abs().max().item()
+        assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_routes(dtype):
+    """With grad on and an input that requires grad, K1 records a graph (one
+    forward launch with the store; the backward kernels on backward()); under
+    no_grad, or without inputs that require grad, it is the serving launch
+    and records nothing. The grads against autograd of the plain attention
+    in f32 on the same (f32-upcast) inputs: f32 within 1e-4 of each
+    gradient's largest |g|; bf16 within twice the error of autograd through
+    the plain attention at bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do = _bwd_inputs(1, 2, 256, 256, 64, dtype, False)
+    scale = 64 ** -0.25
+    assert tattn.flash_attention(q, k, v, scale).grad_fn is None
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    with torch.no_grad():
+        assert tattn.flash_attention(*leaves, scale).grad_fn is None
+    counts = lambda: (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,  # noqa: E731
+                      tattn.flash_attention_backward_dkv.launches)
+    before = counts()
+    out = tattn.flash_attention(*leaves, scale)
+    assert out.grad_fn is not None and counts() == (before[0] + 1, before[1], before[2])
+    out.backward(do)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+
+    def plain_grads(dtype):
+        ref = [x.detach().cpu().to(dtype).requires_grad_() for x in (q, k, v)]
+        tattn.attention_reference(*ref, scale).backward(do.cpu().to(dtype))
+        return [x.grad.float() for x in ref]
+
+    truth = plain_grads(torch.float32)
+    plain = plain_grads(torch.bfloat16) if dtype == torch.bfloat16 else None
+    for i, (got, want) in enumerate(zip(leaves, truth)):
+        assert got.grad.dtype == dtype
+        if plain is None:
+            tol = 1e-4 * want.abs().max().item()
+        else:
+            tol = 2 * (plain[i] - want).abs().max().item()
+        assert (got.grad.float().cpu() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_refused_while_recorded():
+    """A shape the kernels do not take raises in the forward, while the
+    graph is recorded, before any launch; never in backward()."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    counts = lambda: (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,  # noqa: E731
+                      tattn.flash_attention_backward_dkv.launches)
+    before = counts()
+    q = torch.zeros(1, 2, 256, 96, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        tattn.flash_attention(q, q, q, 0.5)
+    h = torch.zeros(1, 2, 256, 64, device="cuda", dtype=torch.float16, requires_grad=True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tattn.flash_attention(h, h, h, 0.5)
+    assert counts() == before
+
+
+def _small_whisper(n_text_layer=2):
+    from streamkit_tpu_torch.models.whisper import WhisperConfig
+
+    return WhisperConfig(n_mels=80, n_audio_ctx=256, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+                         n_vocab=512, n_text_ctx=256, n_text_state=128, n_text_head=2, n_text_layer=n_text_layer)
+
+
+@pytest.mark.cuda
+def test_encode_grads_on_cuda_match_cpu():
+    """A loss through ``encode`` on the card gives the CPU's gradients in
+    every encoder q/k/v projection (before K1 had a backward, the card's
+    attention output carried no graph: those grads were missing, silently).
+    Limit: 1e-4 of each leaf's largest |g|. K1, dQ and dK/dV once per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from streamkit_tpu_torch.models.whisper import encode, seeded_params
+
+    cfg = _small_whisper()
+    mel = torch.from_numpy((np.random.RandomState(0).randn(2, 512, 80) * 0.3).astype(np.float32))
+    # a fixed random readout of the states (a mean square of the layer-normed
+    # states is nearly constant: its q/k grads are ~1e-8, cancellation noise)
+    readout = torch.from_numpy(np.random.RandomState(5).randn(2, 256, 128).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        params = seeded_params(cfg, device=dev)
+        for p in params.parameters():
+            p.requires_grad_(True)
+        before = (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,
+                  tattn.flash_attention_backward_dkv.launches)
+        (encode(params, cfg, mel.to(dev)) * readout.to(dev)).sum().backward()
+        launched = tuple(a - b for a, b in zip((tattn.flash_attention.launches,
+                                                 tattn.flash_attention_backward_dq.launches,
+                                                 tattn.flash_attention_backward_dkv.launches), before))
+        assert launched == ((2, 2, 2) if dev == "cuda" else (0, 0, 0))
+        grads[dev] = {f"{i}.{n}": params.enc.layers[i].attn[n].w.grad for i in range(2) for n in "qkv"}
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert got is not None and want.abs().max().item() > 0, name
+        assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_train_step_on_cuda_matches_cpu():
+    """One ``make_train_step`` step of the small f32 config (encoder and
+    cross-attention through K1 at 256 tokens) on the card and the CPU: the
+    loss within 1e-5 relative, params within 3·lr; K1, dQ and dK/dV once per
+    encoder layer and per cross-attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from streamkit_tpu_torch.models.whisper import seeded_params
+    from streamkit_tpu_torch.parallel import init_train_state, make_train_step
+
+    cfg, lr = _small_whisper(), 1e-3
+    rng = np.random.RandomState(1)
+    batch = (torch.from_numpy((rng.randn(2, 512, 80) * 0.3).astype(np.float32)),
+             torch.from_numpy(rng.randint(0, 512, (2, 256))), torch.from_numpy(rng.randint(0, 512, (2, 256))),
+             torch.ones(2, 256))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = tattn.flash_attention_backward_dkv.launches
+        state, loss = make_train_step(cfg, lr)(init_train_state(seeded_params(cfg, device=dev), lr),
+                                               *(x.to(dev) for x in batch))
+        assert tattn.flash_attention_backward_dkv.launches - before == (4 if dev == "cuda" else 0)
+        out[dev] = (loss.item(), [p.detach().cpu() for p in state.params.parameters()])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    assert max((a - b).abs().max().item() for a, b in zip(out["cuda"][1], out["cpu"][1])) <= 3 * lr
