@@ -128,25 +128,29 @@
    server (equal lines, K1 on the card only).
 
 15. Fine-tuning (``# train``, after the context checks): K1's backward
-   kernels (``csrc/flash_attention_bwd.cu``: dQ, which also computes D =
-   rowsum(dO∘O), then dK/dV) are held against their plain version on the
-   same inputs at f32 (1e-4 of each gradient's largest value) and bf16
-   (twice the plain version's own rounding) at the large-v3 encoder's
+   kernels (``csrc/flash_attention_bwd.cu``: the preprocess, D =
+   rowsum(dO∘O), then the main pass over key tiles, dQ summed in a fixed
+   order, dK and dV) are held against their plain version on the same
+   inputs at f32 (1e-4 of each gradient's largest value) and bf16 (twice
+   the plain version's own rounding) at the large-v3 encoder's
    [2, 20, 1500, 64], its cross-attention at 256 × 1500 and strided views
-   of one fused [B, T, 3·H·d] buffer at d = 128; the forward with the row
-   statistic stored gives the serving launch's output bit for bit; both are
-   timed in turns with SDPA's backward (``torch.autograd.grad``, a
-   yardstick the port never calls). Then ``parallel/train.py``: a small
-   f32 config (256 encoder positions, width 128, 2 heads of 64, 2 + 2
+   of one fused [B, T, 3·H·d] buffer at d = 128; a second run gives the same
+   bits; the forward with the row statistic stored gives the serving
+   launch's output bit for bit; both kernels are timed in turns with SDPA's
+   backward (``torch.autograd.grad``, a yardstick the port never calls),
+   beside the wrapper's host time per call and the time the main kernel's
+   CTAs wait on the ordered dQ's counters. Then ``parallel/train.py``: a
+   small f32 config (256 encoder positions, width 128, 2 heads of 64, 2 + 2
    layers, 256 tokens, so both attention kinds take K1) takes 3 steps on
    the card against the same 3 on the CPU (losses, the first step's grads,
-   params), 4 K1, 4 dQ and 4 dK/dV launches a step, and a resume on the
-   card (2 steps, save, load, 1 step) equal bit for bit to the straight
-   third step; then Whisper large-v3 (random f32 weights from seed 0), 2
-   windows of 3000 mel frames and 256 tokens, 3 f32 steps on one batch (the
-   loss finite and falling) and 2 from the params cast to bf16 (finite),
-   each under the profiler (wall, device time, idle share, peak memory, the
-   top kernels) with exactly 64 K1, 64 dQ and 64 dK/dV launches.
+   params), 4 K1, 4 preprocess and 4 main backward launches a step, and a
+   resume on the card (2 steps, save, load, 1 step) equal bit for bit to
+   the straight third step; then Whisper large-v3 (random f32 weights from
+   seed 0), 2 windows of 3000 mel frames and 256 tokens, 3 f32 steps on one
+   batch (the loss finite and falling) and 2 from the params cast to bf16
+   (finite), each under the profiler (wall, device time, idle share, peak
+   memory, the top kernels) with exactly 64 K1 and 64 of each backward
+   kernel.
 
 Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9,
 11, 12, 13, each request or session of 14, each train step of 15) and read
@@ -197,14 +201,14 @@ def counters():
     return {"flash_attention": attention.flash_attention,
             "windowed_write": cache_write.windowed_write_groups,
             "history_attention": stream_attention.history_attention,
-            "flash_attention_backward_dq": attention.flash_attention_backward_dq,
-            "flash_attention_backward_dkv": attention.flash_attention_backward_dkv}
+            "flash_attention_backward_preprocess": attention._bwd_preprocess,
+            "flash_attention_backward_main": attention._bwd_main}
 
 
 # every kernel's count at 0: a path's expected counts start from it, so K1's
 # backward kernels must stay at 0 wherever nothing is trained
 ZERO_LAUNCHES = {"flash_attention": 0, "windowed_write": 0, "history_attention": 0,
-                 "flash_attention_backward_dq": 0, "flash_attention_backward_dkv": 0}
+                 "flash_attention_backward_preprocess": 0, "flash_attention_backward_main": 0}
 
 
 def reset_counts() -> None:
@@ -375,27 +379,31 @@ def k1_phase():
     return entry
 
 
-# the library flash kernel's backward pallas_calls, which the reference's
-# _lib_flash (streamkit_tpu/ops/attention.py:132) reaches under jax.vjp
-# (jax 0.9.0)
+# what the backward kernels replace: the library flash kernel's backward
+# (jax 0.9.0), which the reference's _lib_flash
+# (streamkit_tpu/ops/attention.py:132) reaches under jax.vjp
 LIB_FLASH_BWD = {
-    "dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 (_flash_attention_bwd_dq)",
-    "dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 (_flash_attention_bwd_dkv)",
+    "preprocess": "jax/experimental/pallas/ops/tpu/flash_attention.py:273 (di = rowsum(o*do), computed outside "
+                  "the backward pallas_calls)",
+    "main": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 (_flash_attention_bwd_dkv) and :1456 "
+            "(_flash_attention_bwd_dq)",
 }
 
 
 def backward_bound(kind: str, b: int, h: int, tq: int, tk: int, d: int, dtype) -> tuple:
-    """(bound ms, "operations" or "bytes") of one backward kernel's own
-    work: ``dq`` 3 products of 2*Tq*Tk*d per head (S, dO V^T, dS K), reading
-    q, k, v, O, dO and lse, writing dq and D; ``dkv`` 4 (S, dO V^T, P^T dO,
-    dS^T Q), reading q, k, v, dO, lse and D, writing dk and dv; ``pair`` the
-    whole backward, 5 products (S once), reading q, k, v, O, dO and lse,
-    writing dq, dk and dv."""
+    """(bound ms, "operations" or "bytes") of the backward's work:
+    ``preprocess`` D = rowsum(dO∘O) (Tq·d multiply-adds a head) reading O
+    and dO, writing D (its bytes bound it; the kernel's copy of lse and the
+    counters it zeroes serve the main pass and are not counted);
+    ``main`` 5 products of 2·Tq·Tk·d a head (S, dO V^T, P^T dO, dS^T Q,
+    dS K), reading q, k, v, dO, lse and D, writing dq, dk and dv; ``pair``
+    the whole backward, 5 products, reading q, k, v, O, dO and lse, writing
+    dq, dk and dv."""
     size = torch.finfo(dtype).bits // 8
-    products, rows = {"dq": (3, (4 * tq + 2 * tk) * d * size + 8 * tq),
-                      "dkv": (4, (2 * tq + 4 * tk) * d * size + 8 * tq),
-                      "pair": (5, (3 * tq + 3 * tk) * d * size + 4 * tq)}[kind]
-    flops = products * 2 * b * h * tq * tk * d
+    products, rows = {"preprocess": (0, 2 * tq * d * size + 4 * tq),
+                      "main": (5, (3 * tq + 4 * tk) * d * size + 8 * tq),
+                      "pair": (5, (4 * tq + 4 * tk) * d * size + 4 * tq)}[kind]
+    flops = products * 2 * b * h * tq * tk * d + (2 * b * h * tq * d if kind == "preprocess" else 0)
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, b * h * rows / H100_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -430,22 +438,41 @@ def autograd_route_check(q, k, v, do, scale: float) -> dict:
     return report
 
 
+def backward_split_ms(fn, iters: int = 5) -> dict:
+    """Device ms of one ``flash_attention_backward`` call, by kernel: the
+    preprocess and the main pass (profiler events by name), and the CUDA-event
+    time of the call."""
+    total = kernel_ms(fn, iters)
+    split = {"preprocess": 0.0, "main": 0.0}
+    for e in device_kernels(fn, iters):
+        kind = "preprocess" if "flash_bwd_prep" in e.name else "main" if "flash_bwd_" in e.name else None
+        if kind is None:
+            raise AssertionError(f"K1 backward: an unexpected device kernel {e.name}")
+        split[kind] += e.time_range.elapsed_us() / iters / 1e3
+    return {**split, "event_ms": total["event_ms"]}
+
+
 def k1_backward_phase() -> dict:
-    """K1's backward kernels (the dQ kernel, then the dK/dV kernel) against
-    their plain version on the same inputs (q, k, v, dO and the forward's O
-    and row statistic), the forward's row statistic against the plain one
+    """K1's backward kernels (the preprocess, D, then the main pass over key
+    tiles) against their plain version on the same inputs (q, k, v, dO and
+    the forward's O and row statistic), and against themselves (a second run
+    gives the same bits), the forward's row statistic against the plain one
     (f32 within 1e-5, bf16 within 1e-3, in log2 units), the forward with the
     statistic stored against the serving launch (bit for bit), the autograd
     route (``flash_attention`` on inputs that require grad, then
-    ``backward()``) against autograd of the plain attention in f32, and
-    their times beside SDPA's backward. Returns the ``kernels`` entries of
-    the two backward kernels (encoder shape, f32: the train path's dtype)."""
+    ``backward()``) against autograd of the plain attention in f32, their
+    times beside SDPA's backward, the wrapper's host time per call and the
+    time the main kernel waits on the ordered dQ's counters. Returns the
+    ``kernels`` entries of the two backward kernels (encoder shape, f32: the
+    train path's dtype; bf16 beside it)."""
     import torch.nn.functional as F
 
     from streamkit_tpu_torch.ops import attention as attn
 
     g = torch.Generator(device="cuda").manual_seed(1)
     entries = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
     # the large-v3 encoder at B = 2, its cross-attention at 256 tokens, and
     # q, k, v as strided views of one fused [B, T, 3*H*d] buffer at d = 128
     # with ragged 64-row tiles
@@ -464,6 +491,7 @@ def k1_backward_phase() -> dict:
             out, lse = attn.flash_attention_lse(q, k, v, scale)
             served = attn.flash_attention(q, k, v, scale)  # no store: the serving paths' launch
             dq, dk, dv = attn.flash_attention_backward(q, k, v, out, do, lse, scale)
+            *again, delta = attn._flash_backward(q, k, v, out, do, lse, scale)  # and the preprocess's D
             torch.cuda.synchronize()
             ins32 = [x.float() for x in (q, k, v, out, do)]
             ref = attn.attention_backward_reference(*ins32[:4], ins32[4], lse, scale)
@@ -471,11 +499,18 @@ def k1_backward_phase() -> dict:
             # would pass the check above, which feeds lse to both sides
             lse_err = (lse - attn.attention_lse_reference(*ins32[:3], scale)[1]).abs().max().item()
             lse_tol = 1e-5 if dtype == torch.float32 else 1e-3
+            # the preprocess's D, as the main pass read it
+            want_d = attn.attention_backward_preprocess_reference(out, do)
+            d_err = (delta - want_d).abs().max().item()
+            d_tol = 1e-5 * want_d.abs().max().item()  # summation order over d
             line = {"case": label, "shape": [b, h, tq, tk, d], "dtype": str(dtype).split(".")[-1],
                     "forward_store_off_bit_equal": torch.equal(out, served),
-                    "lse": {"max_abs_err": lse_err, "tol": lse_tol}}
+                    "repeat_bit_equal": all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
+                    "lse": {"max_abs_err": lse_err, "tol": lse_tol}, "D": {"max_abs_err": d_err, "tol": d_tol}}
             if not lse_err <= lse_tol:
                 raise AssertionError(f"K1 forward {label} {dtype}: row statistic max |err| {lse_err} > {lse_tol}")
+            if not d_err <= d_tol:
+                raise AssertionError(f"K1 backward preprocess {label} {dtype}: D max |err| {d_err} > {d_tol}")
             line["autograd"] = autograd_route_check(q, k, v, do, scale)
             if dtype == torch.bfloat16:  # the plain version at bf16: its rounding alone
                 plain16 = attn.attention_backward_reference(q, k, v, out, do, lse, scale)
@@ -493,40 +528,67 @@ def k1_backward_phase() -> dict:
                     raise AssertionError(f"K1 backward {label} {dtype} {name}: max |err| {err} > {tol}")
             if not line["forward_store_off_bit_equal"]:
                 raise AssertionError(f"K1 forward {label} {dtype}: the row-statistic store changed the output")
+            if not line["repeat_bit_equal"]:
+                raise AssertionError(f"K1 backward {label} {dtype}: a second run gave other bits")
             if label != "fused-strided":
-                dq_fn = lambda: attn.flash_attention_backward_dq(q, k, v, out, do, lse, scale)  # noqa: E731
-                delta = dq_fn()[1]
-                dkv_fn = lambda: attn.flash_attention_backward_dkv(q, k, v, do, lse, delta, scale)  # noqa: E731
+                full = lambda: attn.flash_attention_backward(q, k, v, out, do, lse, scale)  # noqa: E731
                 # SDPA's backward alone: one forward, then grads in turns with the kernels
                 leaves = [x.detach().requires_grad_() for x in (q, k, v)]
                 o_lib = F.scaled_dot_product_attention(*leaves, scale=scale * scale)
                 lib = lambda: torch.autograd.grad(o_lib, leaves, do, retain_graph=True)  # noqa: E731
-                turns = [kernel_ms(fn, iters=5) for fn in (dq_fn, dkv_fn, lib, lib, dkv_fn, dq_fn)]
-                plain = kernel_ms(lambda: attn.attention_backward_reference(q, k, v, out, do, lse, scale), iters=3)
-                times = {"dq": (turns[0]["ms"] + turns[5]["ms"]) / 2, "dkv": (turns[1]["ms"] + turns[4]["ms"]) / 2}
-                lib_ms = (turns[2]["ms"] + turns[3]["ms"]) / 2
-                for kind in ("dq", "dkv", "pair"):
-                    ms = times["dq"] + times["dkv"] if kind == "pair" else times[kind]
+                turns = [backward_split_ms(full), kernel_ms(lib, iters=5), kernel_ms(lib, iters=5),
+                         backward_split_ms(full)]
+                plain = {"preprocess": kernel_ms(lambda: attn.attention_backward_preprocess_reference(out, do))["ms"],
+                         "main": kernel_ms(lambda: attn.attention_backward_main_reference(
+                             q, k, v, do, lse, want_d, scale), iters=3)["ms"]}
+                times = {kind: (turns[0][kind] + turns[3][kind]) / 2 for kind in ("preprocess", "main")}
+                lib_ms = (turns[1]["ms"] + turns[2]["ms"]) / 2
+                # one PyTorch call of the preprocess's function (D alone)
+                vecdot_ms = kernel_ms(lambda: torch.linalg.vecdot(out, do))["ms"]
+                for kind in ("preprocess", "main", "pair"):
+                    ms = times["preprocess"] + times["main"] if kind == "pair" else times[kind]
                     bound, by = backward_bound(kind, b, h, tq, tk, d, dtype)
                     line[f"{kind}_ms"], line[f"{kind}_bound_ms"], line[f"{kind}_bound_by"] = ms, bound, by
                     line[f"{kind}_bound_share"] = bound / ms
-                line.update(library_ms=lib_ms, plain_ms=plain["ms"], turns_ms=[x["ms"] for x in turns],
-                            ratio_to_library=(times["dq"] + times["dkv"]) / lib_ms)
-                if label == "encoder" and dtype == torch.float32:  # the train path's shape and dtype
-                    errs = {"dq": line["dq"]["max_abs_err"],
-                            "dkv": max(line["dk"]["max_abs_err"], line["dv"]["max_abs_err"])}
-                    for kind in ("dq", "dkv"):
+                # the wrapper's host time per call (enqueue only: the card
+                # runs behind), and the main kernel's waits on dQ counters
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    full()
+                host_us = (time.perf_counter() - t0) / 20 * 1e6
+                torch.cuda.synchronize()
+                spin = torch.zeros(1, dtype=torch.int64, device="cuda")
+                attn._flash_backward(q, k, v, out, do, lse, scale, spin=spin)
+                # summed over the CTAs' waiting threads (f32: thread 0, the CTA
+                # behind it; bf16: the dQ writer threads, beside the consumers,
+                # and the last key tile's consumers); one CTA per SM is resident
+                wait_ms = spin.item() / clock * 1e3
+                line.update(library_ms=lib_ms, library_preprocess_ms=vecdot_ms, plain_ms=plain,
+                            turns_ms=[turns[0], turns[1]["ms"], turns[2]["ms"], turns[3]],
+                            ratio_to_library=(times["preprocess"] + times["main"]) / lib_ms,
+                            host_us_per_call=host_us, dq_wait_ms_summed=wait_ms,
+                            dq_wait_share=wait_ms / (times["main"] * sms))
+                if label == "encoder":
+                    for kind in ("preprocess", "main"):
                         name = f"flash_attention_backward_{kind}"
-                        entries[name] = {
-                            "name": name, "route": "cuda", "source": "streamkit_tpu_torch/csrc/flash_attention_bwd.cu",
-                            "replaces": LIB_FLASH_BWD[kind], "max_abs_err": errs[kind], "ms": times[kind],
-                            "plain_ms": plain["ms"], "bound_ms": line[f"{kind}_bound_ms"],
-                            "bound_by": line[f"{kind}_bound_by"], "library_ms": lib_ms,
-                            "library": "torch.autograd.grad through scaled_dot_product_attention (dQ, dK and dV)",
-                            "shape": [b, h, tq, tk, d], "dtype": "float32"}
-                del leaves, o_lib, delta
+                        err = d_err if kind == "preprocess" else max(line[x]["max_abs_err"] for x in ("dq", "dk", "dv"))
+                        numbers = {"max_abs_err": err, "ms": times[kind], "plain_ms": plain[kind],
+                                   "bound_ms": line[f"{kind}_bound_ms"], "bound_by": line[f"{kind}_bound_by"],
+                                   "library_ms": vecdot_ms if kind == "preprocess" else lib_ms}
+                        if dtype == torch.float32:  # the train path's shape and dtype
+                            entries[name] = {
+                                "name": name, "route": "cuda",
+                                "source": "streamkit_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "replaces": LIB_FLASH_BWD[kind], **numbers,
+                                "library": "torch.linalg.vecdot(o, do)" if kind == "preprocess" else
+                                "torch.autograd.grad through scaled_dot_product_attention (dQ, dK and dV)",
+                                "shape": [b, h, tq, tk, d], "dtype": "float32"}
+                        else:
+                            entries[name]["bfloat16"] = numbers
+                del leaves, o_lib, spin
             log("# k1 backward " + json.dumps(line))
-            del q, k, v, do, out, lse, served, dq, dk, dv, ref, ins32
+            del q, k, v, do, out, lse, served, dq, dk, dv, again, delta, ref, ins32
     torch.cuda.empty_cache()
     return entries
 
@@ -797,8 +859,8 @@ def train_launches(cfg) -> dict:
     """One train step's launches: K1 and each backward kernel once per
     encoder layer and once per cross-attention (the tokens take the gate)."""
     n = cfg.n_audio_layer + cfg.n_text_layer
-    return {**ZERO_LAUNCHES, "flash_attention": n, "flash_attention_backward_dq": n,
-            "flash_attention_backward_dkv": n}
+    return {**ZERO_LAUNCHES, "flash_attention": n, "flash_attention_backward_preprocess": n,
+            "flash_attention_backward_main": n}
 
 
 def small_train_check() -> dict:

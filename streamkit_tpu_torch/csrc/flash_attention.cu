@@ -86,36 +86,6 @@ struct Strides {
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;
 };
 
-// D (64 x 128 f32) (+)= A (64 x 16, K-major, smem) * B (16 x 128, K-major, smem)
-__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64 f32) (+)= A (64 x 16 bf16, registers) * B (16 x 64, MN-major, smem)
-__device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 128 f32) (+)= A (64 x 16 bf16, registers) * B (16 x 128, MN-major, smem)
-__device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
 // K/V ring depth: as deep as shared memory allows (one CTA per SM)
 template <int HD, int NC>
 __host__ __device__ constexpr int stages() {
@@ -141,11 +111,11 @@ template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&acc)[HD / 2], const uint32_t (&a)[4], uint64_t db);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_m64n64k16_tb(acc, a, db, 1);
+  sk::wgmma_rs_m64n64k16_tb(acc, a, db, 1);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64], const uint32_t (&a)[4], uint64_t db) {
-  wgmma_rs_m64n128k16_tb(acc, a, db, 1);
+  sk::wgmma_rs_m64n128k16_tb(acc, a, db, 1);
 }
 
 template <int HD, int NC>
@@ -229,7 +199,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) flash_fwd_bf16(
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t off = (kk / 4) * SUB_Q + (kk % 4) * 32;
         const uint32_t koff = (kk / 4) * SUB_KV + (kk % 4) * 32;
-        wgmma_ss_m64n128k16(sc, sk::wgmma_desc(q_base + off, 16, 1024), sk::wgmma_desc(k_base + koff, 16, 1024),
+        sk::wgmma_ss_m64n128k16<0, 0>(sc, sk::wgmma_desc(q_base + off, 16, 1024), sk::wgmma_desc(k_base + koff, 16, 1024),
                             kk > 0);
       }
       sk::wgmma_commit();
@@ -396,61 +366,17 @@ __global__ void __launch_bounds__(BQ_F32) flash_fwd_f32(
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no -lcuda)
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// 4-d map over a [B, H, T, hd] bf16 view (element strides b, h, t; unit hd
-// stride): dims innermost first (hd, T, H, B), boxes of 64 columns x 128
-// rows, 128-byte swizzle, zero fill past T. The wrapper has checked what
-// TMA needs: a 16-byte aligned base and strides that are multiples of 16
-// bytes below 2^40.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* base, int hd, int T, int H, int B, long long sb,
-           long long sh, long long st, int rows = 128) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 1;
-  }();
-  return n;
-}
-
 template <int HD, int NC>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
                 const Strides& st, float scale_log2, float* lse, cudaStream_t stream) {
   constexpr int BM = 64 * NC;
-  const EncodeTiled fn = encoder();
+  const sk::EncodeTiled fn = sk::tensor_map_encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   CUtensorMap mq, mk, mv;
-  int err = encode(fn, &mq, q, HD, Tq, H, B, st.qb, st.qh, st.qt, BM);
-  if (!err) err = encode(fn, &mk, k, HD, Tk, H, B, st.kb, st.kh, st.kt);
-  if (!err) err = encode(fn, &mv, v, HD, Tk, H, B, st.vb, st.vh, st.vt);
-  if (err) return err;
+  if (!sk::encode_heads(fn, &mq, q, HD, Tq, H, B, st.qb, st.qh, st.qt, BM) ||
+      !sk::encode_heads(fn, &mk, k, HD, Tk, H, B, st.kb, st.kh, st.kt, BN) ||
+      !sk::encode_heads(fn, &mv, v, HD, Tk, H, B, st.vb, st.vh, st.vt, BN))
+    return ERR_ENCODE;
   constexpr int smem = bf16_smem_bytes<HD, NC>();
   static const cudaError_t attr =  // once per process (one card)
       cudaFuncSetAttribute(flash_fwd_bf16<HD, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -466,7 +392,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 // long as one of two (tuned on the H100 at the ring decode's and
 // transcribe_window's shapes, chip_smoke.py).
 int consumers(int B, int H, int Tq) {
-  const int sms = sm_count();
+  const int sms = sk::sm_count();
   const long long n3 = static_cast<long long>(B) * H * ((Tq + 191) / 192);
   const long long n2 = static_cast<long long>(B) * H * ((Tq + 127) / 128);
   return 5 * ((n3 + sms - 1) / sms) < 4 * ((n2 + sms - 1) / sms) ? 3 : 2;

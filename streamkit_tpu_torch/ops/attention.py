@@ -4,16 +4,18 @@
 Port of ``streamkit_tpu/ops/attention.py``. The forward kernel
 (``csrc/flash_attention.cu``) replaces both TPU kernels there
 (``_flash_kernel`` and the library ``_lib_flash``); the backward kernels
-(``csrc/flash_attention_bwd.cu``: dQ, then dK/dV; bf16 on the tensor
-cores, f32 on the CUDA cores) replace the library kernel's two backward
-``pallas_call``s. Each source's header notes the design and the bound on an
-H100. They are compiled with ``nvcc`` for ``sm_90a`` into shared libraries
+(``csrc/flash_attention_bwd.cu``: a preprocess for D, then one pass over
+key tiles for dQ, dK and dV, with dQ summed in a fixed order; bf16 on the
+tensor cores by wgmma and TMA, f32 on the CUDA cores) replace the library
+kernel's two backward ``pallas_call``s. Each source's header notes the
+design and the bound on an H100. They are compiled with ``nvcc`` for ``sm_90a`` into shared libraries
 on first CUDA use and loaded with ``ctypes`` (:mod:`._build`); importing
 this module needs neither ``nvcc`` nor a card.
 
-The bf16 path reads q, k and v by TMA through 4-d tensor maps that the
-kernel encodes on each call from :func:`tma_geometry` (host only, three
-``cuTensorMapEncodeTiled`` calls; no copy of the head-split views).
+The bf16 paths read q, k and v (the backward also dO) by TMA through 4-d
+tensor maps that the kernel encodes on each call from :func:`tma_geometry`
+(host only, one ``cuTensorMapEncodeTiled`` call a tensor; no copy of the
+head-split views).
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises on
 what the kernel does not take. Only CPU tensors go to the plain version,
@@ -39,12 +41,12 @@ __all__ = [
     "flash_attention",
     "flash_attention_lse",
     "flash_attention_backward",
-    "flash_attention_backward_dq",
-    "flash_attention_backward_dkv",
     "FlashAttention",
     "attention_reference",
     "attention_lse_reference",
     "attention_backward_reference",
+    "attention_backward_preprocess_reference",
+    "attention_backward_main_reference",
     "tma_geometry",
     "SOURCE",
     "BWD_SOURCE",
@@ -86,21 +88,22 @@ def _rounded(x, dtype):
     return x.to(dtype).float()
 
 
-def _dq_reference(q, k, v, o, do, lse, scale: float):
-    """The dQ kernel's plain version → (dq in q's dtype, D = rowsum(dO∘O) f32)."""
-    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
-    delta = (do32 * o.float()).sum(-1)
-    ds = _probs(q32, k32, lse, scale) * (torch.matmul(do32, v32.transpose(-1, -2)) - delta[..., None])
-    return (torch.matmul(_rounded(ds, q.dtype), k32) * (scale * scale)).to(q.dtype), delta
+def attention_backward_preprocess_reference(o, do):
+    """The preprocess kernel's plain version: D = rowsum(dO∘O), ``[..., Tq]``
+    f32 (the library backward's ``di``, computed outside its kernels)."""
+    return (do.float() * o.float()).sum(-1)
 
 
-def _dkv_reference(q, k, v, do, lse, delta, scale: float):
-    """The dK/dV kernel's plain version → (dk, dv) in k's dtype."""
+def attention_backward_main_reference(q, k, v, do, lse, delta, scale: float):
+    """The main kernel's plain version, one pass given D (``delta``) →
+    ``(dq, dk, dv)`` in the inputs' dtype."""
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     p = _probs(q32, k32, lse, scale)
-    ds = p * (torch.matmul(do32, v32.transpose(-1, -2)) - delta[..., None])
-    dk = torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2), q32) * (scale * scale)
-    return dk.to(k.dtype), torch.matmul(_rounded(p, q.dtype).transpose(-1, -2), do32).to(v.dtype)
+    ds = _rounded(p * (torch.matmul(do32, v32.transpose(-1, -2)) - delta[..., None]), q.dtype)
+    dq = torch.matmul(ds, k32) * (scale * scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q32) * (scale * scale)
+    dv = torch.matmul(_rounded(p, q.dtype).transpose(-1, -2), do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_backward_reference(q, k, v, o, do, lse, scale: float):
@@ -113,9 +116,11 @@ def attention_backward_reference(q, k, v, o, do, lse, scale: float):
     dS = P∘(dO·Vᵀ − D), dQ = s²·dS·K, dK = s²·dSᵀ·Q,
 
     with P and dS rounded to the inputs' dtype before the products they feed
-    (dV, dQ, dK), as the bf16 kernels round them for the tensor cores."""
-    dq, delta = _dq_reference(q, k, v, o, do, lse, scale)
-    return (dq, *_dkv_reference(q, k, v, do, lse, delta, scale))
+    (dV, dQ, dK), as the bf16 kernel rounds them for the tensor cores. Its
+    two halves are the two kernels' plain versions: the preprocess (D), then
+    the main pass."""
+    delta = attention_backward_preprocess_reference(o, do)
+    return attention_backward_main_reference(q, k, v, do, lse, delta, scale)
 
 
 def _declare(lib) -> None:
@@ -132,8 +137,8 @@ def _declare(lib) -> None:
 def _declare_bwd(lib) -> None:
     fn = lib.sk_flash_attention_bwd
     fn.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     lib.sk_bwd_error_string.argtypes = [ctypes.c_int]
@@ -255,16 +260,26 @@ def flash_attention_lse(q, k, v, scale: float):
     return _forward(q, k, v, scale, with_lse=True)
 
 
-def _bwd_launch(which: int, q, k, v, o, do, lse, delta, dq, dk, dv, scale: float) -> None:
+_BM = 64  # query rows per tile of the backward kernels
+
+
+def _work_floats(tq: int, d: int) -> int:
+    """f32 elements of one head's backward workspace (``work_floats`` in
+    ``csrc/flash_attention_bwd.cu``): lse and D padded to whole 64-row query
+    tiles, the dQ accumulator, the dQ counters rounded up to 16 bytes."""
+    nq = -(-tq // _BM)
+    return nq * _BM * (2 + d) + _round_up(nq, 4)
+
+
+def _bwd_launch(which: int, q, k, v, o, do, lse, work, dq, dk, dv, scale: float, strides, spin=None) -> None:
     lib = _build.load(BWD_SOURCE, _declare_bwd)
     b, h, tq, d = q.shape
-    tk = k.shape[2]
-    strides = (ctypes.c_longlong * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv) for st in x.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.sk_flash_attention_bwd(
         which, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, tq, tk, d, ctypes.cast(strides, ctypes.c_void_p), scale * scale * _LOG2E, scale * scale, stream,
+        lse.data_ptr(), work.data_ptr(), work.shape[-1], dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, tq, k.shape[2], d, ctypes.cast(strides, ctypes.c_void_p), scale * scale * _LOG2E, scale * scale,
+        None if spin is None else spin.data_ptr(), stream,
     )
     if err:
         raise RuntimeError(f"flash_attention backward launch failed: {lib.sk_bwd_error_string(err).decode()}")
@@ -272,30 +287,35 @@ def _bwd_launch(which: int, q, k, v, o, do, lse, delta, dq, dk, dv, scale: float
 
 def _rows16(x) -> bool:
     """A 16-byte aligned base and batch, head and time strides (dims of size
-    1 aside): what the bf16 kernels' 16-byte copies need."""
+    1 aside): what the main kernel's loads of dO need (bf16: TMA; f32:
+    16-byte cp.async)."""
     size = x.element_size()
     return x.data_ptr() % 16 == 0 and all(
         n == 1 or st * size % 16 == 0 for n, st in zip(x.shape[:3], x.stride()[:3]))
 
 
-def _bwd_inputs(q, k, v, do, rows, o=None):
-    """Check the backward's operands (``rows``: the ``[B, H, Tq]`` f32 row
-    statistics; ``o``: the forward's output, for the dQ kernel) → ``do``
-    laid out as the kernels read it (autograd may hand over any layout; a
-    copy only then). q, k and v pass the forward's checks (bf16: TMA's
-    16-byte alignment)."""
-    _check(q, k, v)
-    bf16 = q.dtype == torch.bfloat16
-    for x in (do,) if o is None else (do, o):
+def _bwd_inputs(q, k, v, o, do, lse):
+    """Check the backward's operands → ``(do, strides)``: ``do`` laid out as
+    the kernels read it (autograd may hand over any layout; a copy only
+    then) and the (batch, head, time) element strides of q, k, v, o, dO and
+    the dq, dk, dv buffers that both launches take (bf16 q, k, v and dO as
+    their TMA maps are encoded, see :func:`tma_geometry`). q, k and v pass
+    the forward's checks (bf16: TMA's 16-byte alignment)."""
+    qkv = _check(q, k, v)
+    for x in (o, do):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"flash_attention backward: {tuple(x.shape)} {x.dtype} vs q {tuple(q.shape)} {q.dtype}")
-    if o is not None and (o.stride(-1) != 1 or (bf16 and not _rows16(o))):
-        raise ValueError(f"flash_attention backward: o needs a unit head_dim stride (bf16: 16-byte aligned rows), "
-                         f"got {o.stride()}")
-    for x in rows:
-        if x.shape != q.shape[:3] or x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
-            raise ValueError(f"flash_attention backward: lse and delta must be contiguous f32 {tuple(q.shape[:3])}")
-    return do if do.stride(-1) == 1 and (not bf16 or _rows16(do)) else do.contiguous()
+    if o.stride(-1) != 1:
+        raise ValueError(f"flash_attention backward: o needs a unit head_dim stride, got {o.stride()}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention backward: lse must be a contiguous f32 {tuple(q.shape[:3])}")
+    if do.stride(-1) != 1 or not _rows16(do):
+        do = do.contiguous()
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    do_st = tma_geometry(do)[1] if q.dtype == torch.bfloat16 else do.stride()[:3]
+    heads = [(t * h * d, d, h * d) for t in (tq, tk, tk)]  # the _like_heads buffers of dq, dk, dv
+    return do, (ctypes.c_longlong * 24)(*qkv, *o.stride()[:3], *do_st, *(st for x in heads for st in x))
 
 
 def _like_heads(x: torch.Tensor) -> torch.Tensor:
@@ -305,55 +325,67 @@ def _like_heads(x: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, t, h, d), dtype=x.dtype, device=x.device).transpose(1, 2)
 
 
-def flash_attention_backward_dq(q, k, v, o, do, lse, scale: float):
-    """The dQ kernel → ``(dq, delta)``: dq ``[B, H, Tq, d]`` in q's dtype and
-    D = rowsum(dO∘O) ``[B, H, Tq]`` f32, which the dK/dV kernel reads. CPU
-    tensors take the plain version. ``.launches`` counts launches."""
-    if q.device.type == "cpu":
-        return _dq_reference(q, k, v, o, do, lse, scale)
-    do = _bwd_inputs(q, k, v, do, (lse,), o=o)
-    dq = _like_heads(q)
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _bwd_launch(0, q, k, v, o, do, lse, delta, dq, dq, dq, scale)  # the dQ kernel writes no dk, dv
+def _bwd_preprocess(q, k, v, o, do, lse, strides):
+    """The preprocess kernel on operands :func:`_bwd_inputs` checked
+    (``strides`` what it returned): D = rowsum(dO∘O) of every query row →
+    ``(work, delta)``: the main kernel's workspace, ``[B, H, W]`` f32,
+    which holds the row statistic, D and the ordered dQ's accumulator and
+    counters (``csrc/flash_attention_bwd.cu``), and D, a ``[B, H, Tq]``
+    view of it. ``.launches`` counts launches."""
+    b, h, tq, d = q.shape
+    work = torch.empty((b, h, _work_floats(tq, d)), dtype=torch.float32, device=q.device)
+    _bwd_launch(0, q, k, v, o, do, lse, work, q, k, v, 0.0, strides)  # it writes only the workspace
     with _lock:
-        flash_attention_backward_dq.launches += 1
-    return dq, delta
+        _bwd_preprocess.launches += 1
+    nq = -(-tq // _BM) * _BM  # D follows the row statistic, padded to whole query tiles
+    return work, work[..., nq:nq + tq]
 
 
-flash_attention_backward_dq.launches = 0
+_bwd_preprocess.launches = 0
 
 
-def flash_attention_backward_dkv(q, k, v, do, lse, delta, scale: float):
-    """The dK/dV kernel (after the dQ kernel, which made ``delta``) →
-    ``(dk, dv)`` in k's dtype. CPU tensors take the plain version.
-    ``.launches`` counts launches."""
-    if q.device.type == "cpu":
-        return _dkv_reference(q, k, v, do, lse, delta, scale)
-    do = _bwd_inputs(q, k, v, do, (lse, delta))
-    dk, dv = _like_heads(k), _like_heads(v)
-    _bwd_launch(1, q, k, v, do, do, lse, delta, dk, dk, dv, scale)  # it reads no O, writes no dq
+def _bwd_main(q, k, v, o, do, lse, work, scale: float, strides, spin):
+    """The main kernel, on the workspace :func:`_bwd_preprocess` has just
+    filled → ``(dq, dk, dv)`` in the inputs' dtype, as ``[B, H, T, d]``
+    views of ``[B, T, H, d]`` buffers (``o`` is read for nothing but its
+    strides). ``.launches`` counts launches."""
+    dq, dk, dv = _like_heads(q), _like_heads(k), _like_heads(v)
+    _bwd_launch(1, q, k, v, o, do, lse, work, dq, dk, dv, scale, strides, spin)
     with _lock:
-        flash_attention_backward_dkv.launches += 1
-    return dk, dv
+        _bwd_main.launches += 1
+    return dq, dk, dv
 
 
-flash_attention_backward_dkv.launches = 0
+_bwd_main.launches = 0
+
+
+def _flash_backward(q, k, v, o, do, lse, scale: float, spin=None):
+    """Both backward kernels on CUDA tensors, the operands checked once →
+    ``(dq, dk, dv, delta)``, ``delta`` the preprocess's D. ``spin``: an
+    int64 ``[1]`` on the card that the main kernel adds the cycles it waits
+    on dQ counters to (a measurement; None on every path)."""
+    do, strides = _bwd_inputs(q, k, v, o, do, lse)
+    work, delta = _bwd_preprocess(q, k, v, o, do, lse, strides)
+    return (*_bwd_main(q, k, v, o, do, lse, work, scale, strides, spin), delta)
 
 
 def flash_attention_backward(q, k, v, o, do, lse, scale: float):
     """Gradients of :func:`flash_attention` → ``(dq, dk, dv)`` in the inputs'
-    dtype, as ``[B, H, T, d]`` views of ``[B, T, H, d]`` buffers: the dQ
-    wrapper (which also computes D), then the dK/dV wrapper, so CUDA tensors
-    launch both kernels and CPU tensors take their plain halves (together
-    :func:`attention_backward_reference`). A failed build or launch raises."""
-    dq, delta = flash_attention_backward_dq(q, k, v, o, do, lse, scale)
-    return (dq, *flash_attention_backward_dkv(q, k, v, do, lse, delta, scale))
+    dtype. CUDA tensors launch the preprocess (D; ``_bwd_preprocess.launches``)
+    and then the main pass (dQ in a fixed order, dK, dV;
+    ``_bwd_main.launches``), so two runs give the same bits; the results are
+    ``[B, H, T, d]`` views of ``[B, T, H, d]`` buffers. CPU tensors take
+    :func:`attention_backward_reference`, the composition of the two kernels'
+    plain halves. A failed build or launch raises."""
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, o, do, lse, scale)
+    return _flash_backward(q, k, v, o, do, lse, scale)[:3]
 
 
 class FlashAttention(torch.autograd.Function):
     """K1 with its backward kernels: ``FlashAttention.apply(q, k, v, scale)``.
     The forward launches K1 with the row statistic stored and saves q, k, v,
-    O and lse; the backward launches the dQ and dK/dV kernels (first-order
+    O and lse; the backward launches the preprocess and main kernels (first-order
     only). CPU tensors run the plain versions of both."""
 
     @staticmethod

@@ -150,19 +150,46 @@ def test_reference_lib_flash_cannot_be_differentiated():
 
 def test_cpu_wrappers_take_the_plain_versions():
     """On CPU tensors each wrapper is its plain version: the forward with
-    the row statistic, the dQ and dK/dV kernels' halves, their composition;
-    no launch is counted."""
+    the row statistic, and the backward the composition of the preprocess's
+    (D) and main kernel's plain halves; no launch is counted."""
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(3, 2, 1, 64, 80, 64))
     scale = 64 ** -0.25
-    counts = (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,
-              tattn.flash_attention_backward_dkv.launches)
+    counts = (tattn.flash_attention.launches, tattn._bwd_preprocess.launches,
+              tattn._bwd_main.launches)
     o, lse = tattn.flash_attention_lse(q, k, v, scale)
     want_o, want_lse = tattn.attention_lse_reference(q, k, v, scale)
     assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
-    dq, delta = tattn.flash_attention_backward_dq(q, k, v, o, do, lse, scale)
-    dk, dv = tattn.flash_attention_backward_dkv(q, k, v, do, lse, delta, scale)
+    delta = tattn.attention_backward_preprocess_reference(o, do)
     torch.testing.assert_close(delta, (do * o).sum(-1), atol=1e-5, rtol=0)
-    for g, w in zip((dq, dk, dv), tattn.flash_attention_backward(q, k, v, o, do, lse, scale)):
-        assert torch.equal(g, w)
-    assert counts == (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,
-                      tattn.flash_attention_backward_dkv.launches)
+    halves = tattn.attention_backward_main_reference(q, k, v, do, lse, delta, scale)
+    for g, w, r in zip(tattn.flash_attention_backward(q, k, v, o, do, lse, scale), halves,
+                       tattn.attention_backward_reference(q, k, v, o, do, lse, scale)):
+        assert torch.equal(g, w) and torch.equal(g, r)
+    assert counts == (tattn.flash_attention.launches, tattn._bwd_preprocess.launches,
+                      tattn._bwd_main.launches)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("tq", [64, 129])
+def test_plain_preprocess_matches_library_di(dtype, tq):
+    """The plain preprocess's D (the preprocess kernel's oracle) against the
+    library backward's ``di`` on the same o and dO, made with numpy from a
+    seed, in f32 and bf16: within 1e-5 of its largest value (summation
+    order). ``di`` is computed outside the library's kernels, inside its
+    ``_flash_attention_bwd`` (``flash_attention.py:273``), which cannot run
+    here on its own; so its expression, the f32 row sum of o∘dO, is written
+    out below. The library's own ``di`` is exercised end to end by the
+    interpret-mode ``jax.vjp`` tests above, whose gradients depend on it."""
+    rng = np.random.RandomState(tq)
+    o, do = (rng.randn(2, 3, tq, 64).astype(np.float32) for _ in range(2))
+    jo, jdo = jnp.asarray(o), jnp.asarray(do)
+    if dtype == "bfloat16":
+        jo, jdo = jo.astype(jnp.bfloat16), jdo.astype(jnp.bfloat16)
+    want = np.asarray(jnp.sum(jo.astype(jnp.float32) * jdo.astype(jnp.float32), axis=-1))
+    to = torch.from_numpy(np.array(jo.astype(jnp.float32)))
+    tdo = torch.from_numpy(np.array(jdo.astype(jnp.float32)))
+    if dtype == "bfloat16":
+        to, tdo = to.to(torch.bfloat16), tdo.to(torch.bfloat16)
+    got = tattn.attention_backward_preprocess_reference(to, tdo)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, tq)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max(), rtol=0)

@@ -787,7 +787,7 @@ def test_flash_attention_backward_matches_plain(dtype, b, h, tq, tk, d, fused):
     (q, k, v, dO, and O and lse from the forward with the store on): f32
     within 1e-4 of each gradient's largest |g| (summation order over the
     keys); bf16 within twice the plain version's own rounding to bf16. One
-    launch of each kernel; dq, dk, dv as [B, H, T, d] views of [B, T, H, d]
+    launch of each kernel (the preprocess, then the main pass); dq, dk, dv as [B, H, T, d] views of [B, T, H, d]
     buffers; the forward's output equal bit for bit with the store off, and
     its row statistic within 1e-5 (f32) or 1e-3 (bf16) of the plain one, in
     log2 units (both sides here read the kernel's lse, so a wrong row would
@@ -803,10 +803,10 @@ def test_flash_attention_backward_matches_plain(dtype, b, h, tq, tk, d, fused):
     want_lse = tattn.attention_lse_reference(q.float(), k.float(), v.float(), scale)[1]
     assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
     assert (lse - want_lse).abs().max().item() <= (1e-5 if dtype == torch.float32 else 1e-3)
-    before = (tattn.flash_attention_backward_dq.launches, tattn.flash_attention_backward_dkv.launches)
+    before = (tattn._bwd_preprocess.launches, tattn._bwd_main.launches)
     grads = tattn.flash_attention_backward(q, k, v, out, do, lse, scale)
     torch.cuda.synchronize()
-    assert (tattn.flash_attention_backward_dq.launches, tattn.flash_attention_backward_dkv.launches) == (
+    assert (tattn._bwd_preprocess.launches, tattn._bwd_main.launches) == (
         before[0] + 1, before[1] + 1)
     ref = tattn.attention_backward_reference(q.float(), k.float(), v.float(), out.float(), do.float(), lse, scale)
     plain = tattn.attention_backward_reference(q, k, v, out, do, lse, scale)
@@ -816,6 +816,48 @@ def test_flash_attention_backward_matches_plain(dtype, b, h, tq, tk, d, fused):
             tol = 1e-4 * want.abs().max().item()
         else:
             tol = 2 * (low.float() - want).abs().max().item()
+        assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,tq,tk", [(2, 4, 300, 300), (1, 3, 256, 1500)], ids=["self", "cross-256x1500"])
+def test_flash_attention_backward_repeats_bit_for_bit(dtype, b, h, tq, tk):
+    """dQ is summed over the key tiles in one fixed order (no float atomics
+    in a varying order): the backward run twice on the same inputs gives the
+    same dq, dk and dv, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do = _bwd_inputs(b, h, tq, tk, 64, dtype, False)
+    scale = 64 ** -0.25
+    out, lse = tattn.flash_attention_lse(q, k, v, scale)
+    first = tattn.flash_attention_backward(q, k, v, out, do, lse, scale)
+    second = tattn.flash_attention_backward(q, k, v, out, do, lse, scale)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,tq,tk", [(8, 20, 1500, 1500), (2, 4, 37, 1500)], ids=["waves-8x20x1500", "37x1500"])
+def test_flash_attention_backward_many_key_tiles(dtype, b, h, tq, tk):
+    """The ordered dQ at a grid of many waves (8·20·12 CTAs of 128 keys, far
+    above one per SM: a CTA that waited on a tile not yet dispatched would
+    hang) and with many key tiles over one ragged query tile (Tq = 37): the
+    plain version's limits (f32 within 1e-4 of each gradient's largest |g|,
+    bf16 within twice the plain version's own rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do = _bwd_inputs(b, h, tq, tk, 64, dtype, False)
+    scale = 64 ** -0.25
+    out, lse = tattn.flash_attention_lse(q, k, v, scale)
+    grads = tattn.flash_attention_backward(q, k, v, out, do, lse, scale)
+    torch.cuda.synchronize()
+    ref = tattn.attention_backward_reference(q.float(), k.float(), v.float(), out.float(), do.float(), lse, scale)
+    plain = tattn.attention_backward_reference(q, k, v, out, do, lse, scale)
+    for got, want, low in zip(grads, ref, plain):
+        tol = 1e-4 * want.abs().max().item() if dtype == torch.float32 else 2 * (low.float() - want).abs().max().item()
         assert (got.float() - want).abs().max().item() <= tol
 
 
@@ -837,8 +879,9 @@ def test_flash_attention_autograd_routes(dtype):
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     with torch.no_grad():
         assert tattn.flash_attention(*leaves, scale).grad_fn is None
-    counts = lambda: (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,  # noqa: E731
-                      tattn.flash_attention_backward_dkv.launches)
+    counts = lambda: (tattn.flash_attention.launches,  # noqa: E731
+                      tattn._bwd_preprocess.launches,
+                      tattn._bwd_main.launches)
     before = counts()
     out = tattn.flash_attention(*leaves, scale)
     assert out.grad_fn is not None and counts() == (before[0] + 1, before[1], before[2])
@@ -867,8 +910,9 @@ def test_flash_attention_backward_refused_while_recorded():
     graph is recorded, before any launch; never in backward()."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    counts = lambda: (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,  # noqa: E731
-                      tattn.flash_attention_backward_dkv.launches)
+    counts = lambda: (tattn.flash_attention.launches,  # noqa: E731
+                      tattn._bwd_preprocess.launches,
+                      tattn._bwd_main.launches)
     before = counts()
     q = torch.zeros(1, 2, 256, 96, device="cuda", requires_grad=True)
     with pytest.raises(ValueError, match="unsupported shape"):
@@ -891,7 +935,8 @@ def test_encode_grads_on_cuda_match_cpu():
     """A loss through ``encode`` on the card gives the CPU's gradients in
     every encoder q/k/v projection (before K1 had a backward, the card's
     attention output carried no graph: those grads were missing, silently).
-    Limit: 1e-4 of each leaf's largest |g|. K1, dQ and dK/dV once per layer."""
+    Limit: 1e-4 of each leaf's largest |g|. K1 and both backward kernels
+    once per layer."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
@@ -908,12 +953,12 @@ def test_encode_grads_on_cuda_match_cpu():
         params = seeded_params(cfg, device=dev)
         for p in params.parameters():
             p.requires_grad_(True)
-        before = (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,
-                  tattn.flash_attention_backward_dkv.launches)
+        before = (tattn.flash_attention.launches, tattn._bwd_preprocess.launches,
+                  tattn._bwd_main.launches)
         (encode(params, cfg, mel.to(dev)) * readout.to(dev)).sum().backward()
         launched = tuple(a - b for a, b in zip((tattn.flash_attention.launches,
-                                                 tattn.flash_attention_backward_dq.launches,
-                                                 tattn.flash_attention_backward_dkv.launches), before))
+                                                 tattn._bwd_preprocess.launches,
+                                                 tattn._bwd_main.launches), before))
         assert launched == ((2, 2, 2) if dev == "cuda" else (0, 0, 0))
         grads[dev] = {f"{i}.{n}": params.enc.layers[i].attn[n].w.grad for i in range(2) for n in "qkv"}
     for name, want in grads["cpu"].items():
@@ -926,8 +971,8 @@ def test_encode_grads_on_cuda_match_cpu():
 def test_train_step_on_cuda_matches_cpu():
     """One ``make_train_step`` step of the small f32 config (encoder and
     cross-attention through K1 at 256 tokens) on the card and the CPU: the
-    loss within 1e-5 relative, params within 3·lr; K1, dQ and dK/dV once per
-    encoder layer and per cross-attention."""
+    loss within 1e-5 relative, params within 3·lr; K1 and both backward
+    kernels once per encoder layer and per cross-attention."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
@@ -942,10 +987,10 @@ def test_train_step_on_cuda_matches_cpu():
              torch.ones(2, 256))
     out = {}
     for dev in ("cpu", "cuda"):
-        before = tattn.flash_attention_backward_dkv.launches
+        before = tattn._bwd_main.launches
         state, loss = make_train_step(cfg, lr)(init_train_state(seeded_params(cfg, device=dev), lr),
                                                *(x.to(dev) for x in batch))
-        assert tattn.flash_attention_backward_dkv.launches - before == (4 if dev == "cuda" else 0)
+        assert tattn._bwd_main.launches - before == (4 if dev == "cuda" else 0)
         out[dev] = (loss.item(), [p.detach().cpu() for p in state.params.parameters()])
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
     assert max((a - b).abs().max().item() for a, b in zip(out["cuda"][1], out["cpu"][1])) <= 3 * lr

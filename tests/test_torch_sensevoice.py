@@ -18,6 +18,7 @@ import torch
 
 from streamkit_tpu.models import sensevoice as js
 from streamkit_tpu_torch.models import sensevoice as ts
+from test_torch_tts import pairing_batcher
 
 torch.set_num_threads(2)
 
@@ -139,7 +140,8 @@ def run_node(pkg, params, audios, batcher=None):
 def test_sensevoice_node_matches_jax_with_and_without_a_batcher(params):
     """Segments equal to the JAX node's (VAD-gated, the text the random
     model's raw CTC ids); through the port's ``DeviceBatcher`` two sessions
-    share ``sensevoice:`` calls and give the JAX node's batched segments."""
+    share ``sensevoice:`` calls (each kind expects two submissions a call,
+    ``pairing_batcher``) and give the JAX node's batched segments."""
     from streamkit_tpu.engine.batcher import DeviceBatcher as JaxBatcher
     from streamkit_tpu_torch.engine import DeviceBatcher
 
@@ -149,7 +151,7 @@ def test_sensevoice_node_matches_jax_with_and_without_a_batcher(params):
     assert got == want and len(got) >= 1 and got[0][0]
     other = speech(seed=78)
     want_b = run_node("streamkit_tpu", params, [audio, other], batcher=JaxBatcher(tick_ms=20.0))
-    tb = DeviceBatcher(tick_ms=100.0, device="cpu")
+    tb = pairing_batcher(DeviceBatcher)
     got_b = run_node("streamkit_tpu_torch", params, [audio, other], batcher=tb)
     # a batched segment is zero-padded to its sample bucket, so its text may
     # differ from the unbatched one; its times may not

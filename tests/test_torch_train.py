@@ -227,8 +227,8 @@ def test_missing_checkpoint_raises(jax_params, tmp_path):
 def test_cpu_train_step_launches_no_kernel(batch, jax_params):
     """On the CPU the train step differentiates the plain attention: no K1
     forward or backward launch is counted."""
-    counts = (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,
-              tattn.flash_attention_backward_dkv.launches)
+    counts = (tattn.flash_attention.launches, tattn._bwd_preprocess.launches,
+              tattn._bwd_main.launches)
     make_train_step(CFG, lr=LR)(_fresh_state(jax_params), *_torch_batch(batch))
-    assert counts == (tattn.flash_attention.launches, tattn.flash_attention_backward_dq.launches,
-                      tattn.flash_attention_backward_dkv.launches)
+    assert counts == (tattn.flash_attention.launches, tattn._bwd_preprocess.launches,
+                      tattn._bwd_main.launches)

@@ -309,6 +309,24 @@ def run_tts(pkg, params, texts, batcher=None, n_sessions=1):
     return asyncio.run(main())
 
 
+PAIR_HOLD_MS = 5000.0  # how long a lone submission waits for its partner
+
+
+def pairing_batcher(base):
+    """A ``base`` (the port's ``DeviceBatcher``) whose every kind expects two
+    submissions a call and holds a lone one up to ``PAIR_HOLD_MS``: two
+    sessions' items of one shape meet in one call by construction, however
+    late the second arrives on a loaded machine (a 100 ms tick alone left it
+    to chance). The tick stays 100 ms."""
+
+    class PairingBatcher(base):
+        def register(self, name, fn, **kw):
+            super().register(name, fn, **{**kw, "gather_ms": PAIR_HOLD_MS})
+            self.set_expected(name, 2)
+
+    return PairingBatcher(tick_ms=100.0, device="cpu")
+
+
 @pytest.mark.parametrize("backend", ["vits", "fastspeech"])
 def test_tts_node_audio_matches_jax(backend):
     """Both backends without a checkpoint (the reference's random models):
@@ -325,7 +343,7 @@ def test_tts_node_audio_matches_jax(backend):
     np.testing.assert_allclose(got, want, atol=1e-5)
     if backend == "vits":
         (want_b, _), = run_tts("streamkit_tpu", params, SENTENCES, batcher=JaxBatcher(tick_ms=20.0))
-        tb = DeviceBatcher(tick_ms=100.0, device="cpu")  # a tick wide enough that both sessions share it
+        tb = pairing_batcher(DeviceBatcher)
         outs = run_tts("streamkit_tpu_torch", params, SENTENCES, batcher=tb, n_sessions=2)
         for got_b, _ in outs:
             assert got_b.shape == want_b.shape
