@@ -152,9 +152,31 @@
    memory, the top kernels) with exactly 64 K1 and 64 of each backward
    kernel.
 
+16. The mesh (``# mesh``, last): ``parallel/`` on ``torch.distributed``
+   ranks spawned by ``parallel.run_ranks`` (the kernels are built once
+   before, by phase 0). The card's machine has one card and NCCL refuses
+   two ranks on one device, so: (a) one NCCL rank (world size 1): the small
+   f32 config's forward (logits of 2 windows) and 3 fused int8 steps over
+   2 slots on a 1 × 1 mesh, equal to the unsharded run with the same
+   launches, a checkpoint roundtrip, and ``SttServingEngine(mesh=)`` at a
+   small config (2 sessions, every device call a broadcast over NCCL);
+   (b) two gloo ranks sharing ``cuda:0`` (gloo stages CUDA tensors through
+   the host): the same small checks at tp = 2 and at dp = 2 (logits within
+   1e-5, tokens, counts and positions equal, each rank's launches equal to
+   the unsharded run's) and a sharded checkpoint (bit for bit, placements
+   kept, loaded whole on one device); (c) two gloo ranks at tp = 2 on
+   Whisper large-v3 (random weights from seed 0): the bf16 forward, whose
+   gap to the one-rank bf16 run must stay within twice the one-rank bf16
+   run's own gap to its f32 run, with K1 32 per encode on each rank;
+   ``SttServingEngine(mesh=)`` with 4 stream-mode sessions (exactly 2 K2
+   and 32 K3 per fused call on each rank, its model's collectives per
+   call, no stream row held after close); one bf16 train step (64 K1 and
+   64 of each backward kernel on each rank; device time, idle share, peak
+   memory per rank). No multi-card time can be taken on one card.
+
 Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9,
-11, 12, 13, each request or session of 14, each train step of 15) and read
-just after; each must equal what the code implies (K1: 32 per encode of 256
+11, 12, 13, each request or session of 14, each train step of 15, each
+rank's part of 16) and read just after; each must equal what the code implies (K1: 32 per encode of 256
 or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one
 for the encoder caches and their scales and one for the two decoder folds;
 K3: 32 per fused step call; K1's backward kernels: 0 outside 15, one each
@@ -1376,12 +1398,13 @@ def stream_context_phase():
 # ---------------------------------------------------------------------------
 # 4. live-partials path: SttServingEngine at large-v3 width
 # ---------------------------------------------------------------------------
-async def run_engine(final_mode: str, n_sessions: int, speech_s: float, seed0: int):
+async def run_engine(final_mode: str, n_sessions: int, speech_s: float, seed0: int, mesh=None,
+                     model_size: str = "large-v3", dtype: str = "bfloat16"):
     from streamkit_tpu_torch.engine import SttServingEngine
     from streamkit_tpu_torch.utils.speechsynth import synth_speech
 
-    eng = SttServingEngine(model_size="large-v3", dtype="bfloat16", max_sessions=n_sessions,
-                           final_mode=final_mode, device="cuda")
+    eng = SttServingEngine(model_size=model_size, dtype=dtype, max_sessions=n_sessions,
+                           final_mode=final_mode, device="cuda", mesh=mesh)
     t0 = time.monotonic()
     await eng.start()
     t_start = time.monotonic() - t0
@@ -1408,7 +1431,8 @@ async def run_engine(final_mode: str, n_sessions: int, speech_s: float, seed0: i
     stats = eng.batcher.stats()
     out = dict(mode=final_mode, sessions=n_sessions, start_s=t_start, serve_s=t_serve, stats=stats,
                finals_stream=eng.finals_stream, finals_fallback=eng.finals_fallback, sstep_kind=eng._sstep_kind,
-               trace_calls=eng.trace_calls)
+               trace_calls=eng.trace_calls, mesh_calls=eng.mesh_calls,
+               rows_held=eng._tbl.max_slots - len(eng._tbl._free))
     del eng
     torch.cuda.empty_cache()
     return events, out
@@ -2968,6 +2992,324 @@ def server_phase() -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# 16. the mesh: dp × tp ranks of torch.distributed (parallel/)
+# ---------------------------------------------------------------------------
+MESH_ENGINE_CFG = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+                       n_vocab=51866, n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2)
+
+
+def affine_random(params, seed: int):
+    """``params`` with every leaf that the init sets to one constant (the
+    biases, the layer-norm gains and shifts) moved off it in place by seeded
+    noise of 0.1, drawn on the host: a bias added once per tp rank, or the
+    wrong block of a split bias, then shows in every mesh check."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.numel() and bool((p == p.flatten()[0]).all()):
+                p.add_((0.1 * torch.randn(p.shape, generator=gen)).to(p.device, p.dtype))
+    return params
+
+
+def mesh_fused_blocks(params, tbl, ring, n_blocks: int = 3) -> None:
+    """``n_blocks`` fused identity-packed steps over every slot of ``tbl``
+    from one seed (global ids: on a mesh each rank runs its own slots)."""
+    S, block = tbl.max_slots, 8 * 512
+    audio = (np.random.RandomState(0).randn(S, n_blocks * block) * 0.2).astype(np.float32)
+    tip = 0
+    for step in range(n_blocks):
+        written = step * block
+        n_req = max(0, min((written + block - 200 - tip) // 2560, 2))
+        meta = np.asarray([[s, s, written, tip, n_req, int(step > 0), int(step == 0), 1, 2, 3, 4]
+                           for s in range(S)], np.int32)
+        tbl.step(params, ring, meta, None, None, None, None, None,
+                 audio[:, written : written + block].reshape(S, 8, 512), max_steps=3)
+        tip += n_req * 2560
+
+
+def mesh_small_run(mesh=None) -> dict:
+    """The small f32 config (the train check's: 2 + 2 layers of 2 heads of
+    64, so K1 takes its encoder; random biases and layer norms), whole or on
+    ``mesh``: the teacher-forced logits of 2 windows (rows over dp) and 3
+    fused int8 steps over 2 slots, each part's launches counted from 0 on
+    this process. ``tests/test_torch_kernels_cuda.py`` runs it too."""
+    import torch.distributed as dist
+
+    from streamkit_tpu_torch.engine.audio_ring import SessionAudioRing
+    from streamkit_tpu_torch.models.whisper import StreamTable, WhisperConfig, seeded_params
+    from streamkit_tpu_torch.models.whisper.model import decode_logits, encode
+    from streamkit_tpu_torch.parallel import shard_batch, shard_params
+    from streamkit_tpu_torch.parallel.serving import gather_rows, shard_audio_ring, shard_stream_table
+
+    cfg = WhisperConfig(**SMALL_TRAIN)
+    params = affine_random(seeded_params(cfg, device="cuda"), 3)
+    if mesh is not None:
+        params = shard_params(mesh, params, cfg)
+    rng = np.random.RandomState(2)
+    mel = torch.from_numpy((rng.randn(2, 512, 80) * 0.3).astype(np.float32)).cuda()
+    tokens = torch.from_numpy(rng.randint(0, 512, (2, 8))).cuda()
+    if mesh is not None:
+        mel, tokens = shard_batch(mesh, mel, tokens)
+    out = {}
+    reset_counts()
+    with torch.no_grad():
+        logits = decode_logits(params, cfg, tokens, encode(params, cfg, mel))
+    torch.cuda.synchronize()
+    out["forward_launches"] = read_counts()
+    if mesh is not None and mesh.size(0) > 1:
+        parts = [torch.empty_like(logits) for _ in range(mesh.size(0))]
+        dist.all_gather(parts, logits.contiguous(), group=mesh.get_group("dp"))
+        logits = torch.cat(parts)
+    out["logits"] = logits.cpu().numpy()
+    ring = SessionAudioRing(max_slots=2, ring_samples=1 << 14, device="cuda")
+    for _ in range(2):
+        ring.alloc()
+    tbl = StreamTable(cfg, torch.float32, max_slots=2, enc_t=64, dec_t=32, kv_int8=True, device="cuda")
+    if mesh is not None:
+        shard_stream_table(mesh, tbl)
+        shard_audio_ring(mesh, ring)
+    reset_counts()
+    mesh_fused_blocks(params, tbl, ring)
+    torch.cuda.synchronize()
+    out["fused_launches"] = read_counts()
+    rows = (tbl._tokens, tbl._n_tok, tbl._enc_pos)
+    out["rows"] = gather_rows(tbl.shard, *rows) if mesh is not None else tuple(x.cpu().numpy() for x in rows)
+    return out
+
+
+def mesh_checkpoint_roundtrip(mesh, directory: str) -> dict:
+    """The small config's params saved from the mesh and loaded back into
+    the sharded template (bit for bit, placements kept) and, on rank 0, into
+    a one-device template (the whole tree)."""
+    import torch.distributed as dist
+
+    from streamkit_tpu_torch.models.whisper import WhisperConfig, seeded_params
+    from streamkit_tpu_torch.ops.tensor_parallel import tp_of
+    from streamkit_tpu_torch.parallel import shard_params
+    from streamkit_tpu_torch.utils.checkpoint import load_params, save_params
+
+    cfg = WhisperConfig(**SMALL_TRAIN)
+    full = affine_random(seeded_params(cfg, device="cuda"), 3)
+    local = shard_params(mesh, full, cfg)
+    save_params(directory, local, step=0)
+    back = load_params(directory, local)
+    pairs = list(zip(local.parameters(), back.parameters()))
+    out = {"bit_equal": all(torch.equal(a, b) for a, b in pairs),
+           "placements_kept": all(tp_of(a) == tp_of(b) for a, b in pairs),
+           "split_leaves": sum(tp_of(b) is not None for _, b in pairs)}
+    if dist.get_rank() == 0:
+        one = load_params(directory, seeded_params(cfg, device="cuda"))
+        out["one_device_equal"] = all(torch.equal(a, b) for a, b in zip(one.parameters(), full.parameters()))
+    dist.barrier()
+    return out
+
+
+def mesh_small_rank(tps, directory: str, with_engine: bool) -> dict:
+    """On every rank: the small config on a mesh of each ``tp`` in ``tps``;
+    the first mesh also runs the checkpoint roundtrip and, with
+    ``with_engine``, a small-config engine (rank 0 serves 2 sessions, the
+    other ranks follow)."""
+    import torch.distributed as dist
+
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig
+    from streamkit_tpu_torch.parallel import make_mesh
+
+    world, out = dist.get_world_size(), {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    for i, tp in enumerate(tps):
+        mesh = make_mesh(world, tp=tp, device="cuda")
+        out[f"tp{tp}"] = mesh_small_run(mesh)
+        if i == 0:
+            out["checkpoint"] = mesh_checkpoint_roundtrip(mesh, os.path.join(directory, f"tp{tp}"))
+            if with_engine:
+                WHISPER_CONFIGS["mesh-check"] = WhisperConfig(**MESH_ENGINE_CFG)
+                out["engine"] = mesh_engine(mesh, "mesh-check", "float32", 2, 3.0, layers=2)
+    return out
+
+
+def mesh_engine(mesh, model_size: str, dtype: str, n_sessions: int, speech_s: float, layers: int) -> dict:
+    """``SttServingEngine(mesh=)`` in stream mode: rank 0 serves
+    ``n_sessions`` sessions, the other ranks follow its device calls; this
+    rank's launches, counted from 0, against the calls it ran."""
+    import torch.distributed as dist
+
+    from streamkit_tpu_torch.engine import SttServingEngine
+    from streamkit_tpu_torch.ops.tensor_parallel import collectives
+
+    reset_counts()
+    tp_before = dict(collectives)
+    if dist.get_rank() == 0:
+        with knobs(SK_STT_TRACE=1):  # per-call wall times of the fused step
+            events, out = asyncio.run(run_engine("stream", n_sessions, speech_s, seed0=300, mesh=mesh,
+                                                 model_size=model_size, dtype=dtype))
+        check_events(events, f"mesh {model_size}")
+        calls = out["mesh_calls"]
+        report = {"fused_calls": out["stats"]["kinds"][out["sstep_kind"]]["calls"], "rows_held": out["rows_held"],
+                  "serve_s": out["serve_s"], "start_s": out["start_s"], "finals_stream": out["finals_stream"],
+                  "finals_fallback": out["finals_fallback"],
+                  "fused_call_ms_median": 1e3 * float(np.median([c[3] - c[0] for c in out["trace_calls"]]))}
+        sstep = out["sstep_kind"]
+    else:
+        eng = SttServingEngine(model_size=model_size, dtype=dtype, max_sessions=n_sessions, final_mode="stream",
+                               device="cuda", mesh=mesh)
+        asyncio.run(eng.start())
+        eng.follow()
+        calls, report, sstep = eng.mesh_calls, {}, eng._sstep_kind
+        del eng
+    torch.cuda.synchronize()
+    counts = read_counts()
+    fused = calls.get(sstep, 0)
+    # the model's tp collectives per device call (one broadcast of the call
+    # from rank 0 beside them, and one all-gather over dp where dp > 1)
+    report["tp_collectives_per_call"] = {k: (collectives[k] - tp_before[k]) / max(sum(calls.values()), 1)
+                                         for k in collectives}
+    # exact-final fallbacks: a ring decode of >= 8 s has >= 256 encoder positions (K1)
+    encodes = sum(v for k, v in calls.items() if k.startswith("whisper_ring:") and int(k.rsplit(":", 1)[1]) >= 8 * SR)
+    want = {**ZERO_LAUNCHES, "flash_attention": layers * encodes, "windowed_write": 2 * fused,
+            "history_attention": layers * fused}
+    torch.cuda.empty_cache()
+    return {**report, "launches": counts, "expected": want, "calls": calls}
+
+
+def mesh_large_rank(n_sessions: int, speech_s: float) -> dict:
+    """Two ranks sharing the card at tp = 2, Whisper large-v3 (random weights
+    from seed 0, biases and layer norms from seed 21): the bf16 forward against the one-rank bf16 and f32
+    forwards (rank 0 runs both), the engine, and one bf16 train step."""
+    import torch.distributed as dist
+
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, seeded_params
+    from streamkit_tpu_torch.models.whisper.model import decode_logits, encode
+    from streamkit_tpu_torch.parallel import init_train_state, make_mesh, make_train_step, shard_params
+
+    rank = dist.get_rank()
+    mesh = make_mesh(2, tp=2, device="cuda")
+    cfg = WHISPER_CONFIGS["large-v3"]
+    out = {"rank": rank}
+    t0 = time.monotonic()
+    params = affine_random(seeded_params(cfg, torch.float32, device="cuda"), 21)
+    out["init_s"] = time.monotonic() - t0
+    rng = np.random.RandomState(21)
+    mel = torch.from_numpy((rng.randn(1, 3000, cfg.n_mels) * 0.3).astype(np.float32)).cuda()
+    tokens = torch.from_numpy(rng.randint(0, cfg.n_vocab, (1, 16))).cuda()
+
+    def forward(p, m):
+        with torch.no_grad():
+            return decode_logits(p, cfg, tokens, encode(p, cfg, m)).float()
+
+    one32 = forward(params, mel) if rank == 0 else None
+    params.to(torch.bfloat16)
+    one16 = forward(params, mel.to(torch.bfloat16)) if rank == 0 else None
+    local = shard_params(mesh, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.monotonic()
+    got = forward(local, mel.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    out["forward"] = {"launches": read_counts(), "wall_s": time.monotonic() - t0, "layers": cfg.n_audio_layer,
+                      "q_local": list(local["enc"]["layers"][0]["attn"]["q"]["w"].shape)}
+    if rank == 0:
+        out["forward"].update(gap_mesh_to_one_bf16=(got - one16).abs().max().item(),
+                              gap_one_bf16_to_f32=(one16 - one32).abs().max().item(), shape=list(got.shape))
+    del one32, one16
+    dist.barrier()
+    out["engine"] = mesh_engine(mesh, "large-v3", "bfloat16", n_sessions, speech_s, layers=cfg.n_audio_layer)
+    dist.barrier()
+    step = make_train_step(cfg, TRAIN_LR, mesh=mesh)
+    batch = train_batch(cfg, 2, 256, "cuda", seed=11)
+    batch = (batch[0].to(torch.bfloat16), *batch[1:])
+    rows, _ = large_train_steps(init_train_state(local, TRAIN_LR), step, batch, 1, f"bf16 tp=2 rank {rank}")
+    out["train"] = rows[0]
+    return out
+
+
+def mesh_gloo_rank(directory: str, n_sessions: int, speech_s: float) -> dict:
+    """Both parts of the phase that run on two gloo ranks, in one spawn."""
+    return {"small": mesh_small_rank([2, 1], directory, False), "large": mesh_large_rank(n_sessions, speech_s)}
+
+
+def mesh_phase() -> dict:
+    """The sharded half of ``parallel/`` on the card. The card's machine has
+    one card and NCCL refuses two ranks on one device, so: NCCL at world
+    size 1, then two gloo ranks sharing ``cuda:0`` (small f32 config at
+    tp = 2 and at dp = 2, a sharded checkpoint; large-v3 bf16 at tp = 2:
+    forward, ``SttServingEngine(mesh=)``, one train step). A rank's failure
+    fails the script. Returns each kernel's launches per rank."""
+    import tempfile
+
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS
+    from streamkit_tpu_torch.parallel import run_ranks
+
+    torch.cuda.empty_cache()
+    one = mesh_small_run()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. NCCL at world size 1: the mesh path and an engine over NCCL
+        t0 = time.monotonic()
+        (nccl,) = run_ranks(mesh_small_rank, 1, [1], os.path.join(tmp, "nccl"), True, device="cuda",
+                            timeout_s=300)
+        report["nccl_world1_s"] = time.monotonic() - t0
+        # 2-5. two gloo ranks on cuda:0: the small config at tp = 2, then
+        # dp = 2; large-v3 bf16 at tp = 2
+        t0 = time.monotonic()
+        ranks = run_ranks(mesh_gloo_rank, 2, os.path.join(tmp, "gloo"), 4, 3.0, device="cuda", backend="gloo",
+                          timeout_s=600)
+        report["gloo_s"] = time.monotonic() - t0
+    gloo, large = [r["small"] for r in ranks], [r["large"] for r in ranks]
+    checks = []
+    for label, res in [("nccl world 1", nccl["tp1"])] + [(f"gloo rank {r['rank']} tp {tp}", r[f"tp{tp}"])
+                                                          for r in gloo for tp in (2, 1)]:
+        gap = float(np.abs(res["logits"] - one["logits"]).max())
+        same = all(np.array_equal(a, b) for a, b in zip(res["rows"], one["rows"]))
+        ok = (same and gap <= 1e-5 and res["forward_launches"] == one["forward_launches"]
+              and res["fused_launches"] == one["fused_launches"])
+        checks.append({"run": label, "logits_gap": gap, "rows_equal": same, "forward": res["forward_launches"],
+                       "fused": res["fused_launches"], "ok": ok})
+    report["small"] = checks
+    report["one_rank_small"] = {"forward": one["forward_launches"], "fused": one["fused_launches"]}
+    report["nccl_backend"] = nccl["backend"]
+    report["checkpoint"] = {"nccl": nccl["checkpoint"], "gloo": [r["checkpoint"] for r in gloo]}
+    report["nccl_engine"] = nccl["engine"]
+    log("# mesh small " + json.dumps(report))
+    bad = [c for c in checks if not c["ok"]]
+    if bad or nccl["backend"] != "nccl":
+        raise AssertionError(f"mesh small config: {bad or nccl['backend']}")
+    ckpts = [nccl["checkpoint"], *report["checkpoint"]["gloo"]]
+    if not all(c["bit_equal"] and c["placements_kept"] and c.get("one_device_equal", True) for c in ckpts) or \
+            not gloo[0]["checkpoint"]["split_leaves"] or gloo[0]["checkpoint"].get("one_device_equal") is not True:
+        raise AssertionError(f"mesh checkpoint roundtrip: {ckpts}")
+    eng = nccl["engine"]
+    if eng["launches"] != eng["expected"] or eng["rows_held"] != 0 or not eng["fused_calls"]:
+        raise AssertionError(f"mesh engine at world 1: {eng}")
+
+    for r in large:
+        log(f"# mesh large-v3 rank {r['rank']} " + json.dumps(r))
+    fwd = large[0]["forward"]
+    train_want = train_launches(WHISPER_CONFIGS["large-v3"])
+    for r in large:
+        e = r["engine"]
+        if r["forward"]["launches"] != {**ZERO_LAUNCHES, "flash_attention": r["forward"]["layers"]}:
+            raise AssertionError(f"mesh forward rank {r['rank']}: launches {r['forward']['launches']}")
+        if e["launches"] != e["expected"] or not e["calls"]:
+            raise AssertionError(f"mesh engine rank {r['rank']}: launches {e['launches']}, want {e['expected']}")
+        if r["train"]["launches"] != train_want or not math.isfinite(r["train"]["loss"]):
+            raise AssertionError(f"mesh train rank {r['rank']}: {r['train']}")
+    if large[0]["engine"]["rows_held"] != 0:
+        raise AssertionError(f"mesh engine left stream rows: {large[0]['engine']}")
+    if not fwd["gap_mesh_to_one_bf16"] <= 2 * fwd["gap_one_bf16_to_f32"]:
+        raise AssertionError(f"mesh large-v3 forward: {fwd}")
+    log("# mesh phase " + json.dumps({k: v for k, v in report.items() if k.endswith("_s")}))
+    per_rank = {name: {"forward_tp2": [r["forward"]["launches"][name] for r in large],
+                       "engine_tp2": [r["engine"]["launches"][name] for r in large],
+                       "train_tp2": [r["train"]["launches"][name] for r in large],
+                       "small_tp2": [r["tp2"]["forward_launches"][name] + r["tp2"]["fused_launches"][name]
+                                     for r in gloo],
+                       "nccl_world1": [nccl["tp1"]["forward_launches"][name] + nccl["tp1"]["fused_launches"][name]
+                                       + nccl["engine"]["launches"][name]]}
+                for name in ZERO_LAUNCHES}
+    return {"report": report, "large": large, "launches_mesh": per_rank}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3036,6 +3378,10 @@ def main() -> int:
     server_subprocess_phase()
     server = server_phase()
     log(f"# server phase {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    mesh = mesh_phase()
+    log(f"# mesh phase (NCCL at world size 1; two gloo ranks on the card: small f32, large-v3 bf16 at tp = 2) "
+        f"{time.monotonic() - t0:.1f} s")
     ogg_k1 = {label: ogg[label]["launches"]["flash_attention"] for label in ("fused", "unfused") if label in ogg}
     k1.update(launches=seg["flash_attention"], path="oneshot segment finals (WhisperNode)",
               launches_live_captions=captions["flash_attention"], launches_live_partials=live["flash_attention"],
@@ -3061,6 +3407,8 @@ def main() -> int:
               launches_dynamic_session=dynamic["history_attention"],
               launches_speech_models=speech["launches"]["history_attention"],
               launches_server_session=server["session"]["launches"]["history_attention"])
+    for entry in (k1, k2, k3, *bwd.values()):
+        entry["launches_mesh"] = mesh["launches_mesh"][entry["name"]]
     log(f"# whole script {time.monotonic() - t_script:.1f} s")
     log(json.dumps({"kernels": [k1, k2, k3, *bwd.values()]}))
     log(smi)

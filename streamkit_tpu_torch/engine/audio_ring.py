@@ -18,13 +18,19 @@ never written again and a decode reading it sees a fixed snapshot.
 
 Capacity rule: ``ring_samples`` (default 2^19 = 32.77 s @16 kHz) must exceed
 the longest segment (30 s) plus the closing silence (0.7 s).
+
+On a mesh (:func:`...parallel.serving.shard_audio_ring`) a rank holds the
+rows of its dp share of the slots plus a trash row of its own; slot ids stay
+global. A slot's VAD reset then runs on the rank that owns it: ``alloc``
+only records it, and the serving engine hands the pending resets to every
+rank with its next device call (:meth:`SessionAudioRing.reset_slots`).
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -107,23 +113,52 @@ class SessionAudioRing:
         self._ring = torch.zeros((max_slots, ring_samples), dtype=torch.int16, device=self.device)
         self._free: List[int] = list(range(max_slots - 1, -1, -1))
         self._trash = None
+        self.shard = None  # this rank's SlotShard on a mesh
+        self._pending_resets: List[int] = []
         self._alloc_lock = threading.Lock()
         # serializes VAD steps (in-place state) and ring swaps; decode
         # readers snapshot the ring under it but run outside it
         self._step_lock = threading.Lock()
 
     # -- slot lifecycle -----------------------------------------------------
-    def alloc(self) -> int:
-        """Acquire a slot; its VAD state resets. Stale ring contents are
-        harmless (decodes mask by length and only read what VAD wrote)."""
+    def alloc(self, dp_rank: Optional[int] = None) -> int:
+        """Acquire a slot (on a mesh: one of ``dp_rank``'s, when given); its
+        VAD state resets (on a mesh: at the next :meth:`reset_slots`). Stale
+        ring contents are harmless (decodes mask by length and only read
+        what VAD wrote)."""
         with self._alloc_lock:
-            if not self._free:
+            free = self._free
+            if dp_rank is not None and self.shard is not None:
+                free = [s for s in self._free if self.shard.owner(s) == dp_rank]
+            if not free:
                 raise RuntimeError(f"audio ring table exhausted ({self.max_slots} slots)")
-            slot = self._free.pop()
+            slot = free[-1]
+            self._free.remove(slot)
+            if self.shard is not None:
+                self._pending_resets.append(slot)
+                return slot
+        self.reset_slots([slot])
+        return slot
+
+    def take_resets(self) -> List[int]:
+        """The slots allocated on a mesh since the last call (their VAD resets
+        are still to run on every rank: :meth:`reset_slots`)."""
+        with self._alloc_lock:
+            out, self._pending_resets = self._pending_resets, []
+        return out
+
+    def reset_slots(self, slots) -> None:
+        """Reset the VAD state of ``slots`` (global ids); on a mesh, of those
+        this rank owns."""
+        rows = list(slots)
+        if self.shard is not None:
+            sh = self.shard
+            rows = [s - sh.rank * sh.local for s in rows if sh.owner(s) == sh.rank]
+        if not rows:
+            return
         with self._step_lock:
             for s, r in zip(self._vad_state, self._init_row):
-                s[slot] = r
-        return slot
+                s[rows] = r
 
     def free(self, slot: int) -> None:
         with self._alloc_lock:
@@ -132,7 +167,10 @@ class SessionAudioRing:
     def trash_slot(self) -> int:
         """Process-shared parking slot for the inert rows of identity-packed
         fused batches (duplicate writes of garbage, never read). Allocated
-        once, at first use, and never freed."""
+        once, at first use, and never freed. On a mesh: ``-1``, which each
+        rank reads as its own trash row."""
+        if self.shard is not None:
+            return -1
         with self._alloc_lock:
             if self._trash is None:
                 if not self._free:
@@ -154,6 +192,8 @@ class SessionAudioRing:
         ``frames_b [B, n_frames, VAD_FRAME]`` f32 PCM or int16 wire (numpy or
         tensor) → probs ``[B, n_frames]`` on the ring's device. Host f32 is
         quantized to the int16 wire before upload."""
+        if self.shard is not None:
+            raise ValueError("a sharded ring appends only inside the fused stream step")
         if isinstance(frames_b, np.ndarray):
             frames_b = pcm_to_wire(frames_b)
         frames = torch.as_tensor(frames_b, device=self.device)
@@ -170,18 +210,30 @@ class SessionAudioRing:
             return self._ring
 
 
-# process-wide rings, one per device (slots are allocated per session)
-_RINGS: Dict[str, SessionAudioRing] = {}
+# process-wide rings, one per device and mesh shard (slots are allocated per
+# session)
+_RINGS: Dict[object, SessionAudioRing] = {}
 _RINGS_LOCK = threading.Lock()
 
 
-def get_audio_ring(device=None) -> SessionAudioRing:
+def get_audio_ring(device=None, mesh=None) -> SessionAudioRing:
     """The process-wide :class:`SessionAudioRing` on ``device`` (default
-    ``cuda``), ``SK_RING_SLOTS`` slots (default 128) at first creation."""
+    ``cuda``), ``SK_RING_SLOTS`` slots (default 128) at first creation. With
+    a ``mesh``, this rank's dp shard of it (a ring of its own: a rank is
+    never handed the unsharded one)."""
     dev = resolve_device(device)
+    key = str(dev)
+    if mesh is not None:
+        from ..parallel.mesh import mesh_coords
+
+        key = (key, mesh_coords(mesh))
     with _RINGS_LOCK:
-        ring = _RINGS.get(str(dev))
+        ring = _RINGS.get(key)
         if ring is None:
             ring = SessionAudioRing(max_slots=int(os.environ.get("SK_RING_SLOTS", "128")), device=dev)
-            _RINGS[str(dev)] = ring
+            if mesh is not None:
+                from ..parallel.serving import shard_audio_ring
+
+                shard_audio_ring(mesh, ring)
+            _RINGS[key] = ring
         return ring

@@ -25,8 +25,17 @@ Finals come in two modes:
   encoder (bucketed ring decode, the flash-attention kernel on a card). The
   session's worker awaits it inline.
 
-Not ported yet: the reference's ``mesh`` (sharded serving) and ``resources``
-(shared model cache) arguments.
+On a ``(dp, tp)`` mesh (``mesh=``, :func:`..parallel.mesh.make_mesh`) the
+engine is built on every rank of the group. Rank 0 owns the sessions, the
+ingest pool and the :class:`~.batcher.DeviceBatcher`; every device call it
+makes (the fused step, the exact-final ring decodes) goes out as one
+broadcast of its name and host inputs, and the other ranks run the same call
+on their shards in :meth:`SttServingEngine.follow` until rank 0 stops. A
+row runs on the dp rank that owns its slot (every tp rank of that group runs
+it); its outputs come back to rank 0 by an all-gather over dp
+(:mod:`..parallel.serving`).
+
+Not ported yet: the reference's ``resources`` (shared model cache) argument.
 """
 
 from __future__ import annotations
@@ -34,12 +43,14 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.whisper import WHISPER_CONFIGS, WhisperDetokenizer, load_pretrained, seeded_params
@@ -90,7 +101,8 @@ class _Session:
 
 class SttServingEngine:
     """N realtime STT sessions over one shared model (module docstring).
-    Runs on ``device`` (default ``cuda``)."""
+    Runs on ``device`` (default ``cuda``), on one device or, with ``mesh``,
+    on every rank of a ``(dp, tp)`` mesh."""
 
     def __init__(
         self,
@@ -109,6 +121,7 @@ class SttServingEngine:
         max_tokens: int = 32,
         batcher: Optional[DeviceBatcher] = None,
         ingest_queue_cap: int = 4096,
+        mesh=None,
         device=None,
     ) -> None:
         if final_mode not in ("stream", "exact"):
@@ -131,6 +144,15 @@ class SttServingEngine:
         self.batcher = batcher or DeviceBatcher(tick_ms=float(os.environ.get("SK_STT_TICK_MS", "5")),
                                                 device=self.device)
         self._own_batcher = batcher is None
+        # optional (dp, tp) DeviceMesh: weights tensor parallel, stream slots
+        # over dp and heads over tp, audio-ring slots over dp
+        self.mesh = mesh
+        self._leader = mesh is None or dist.get_rank() == 0
+        self._mesh_fns: Dict[str, Callable] = {}
+        self._mesh_lock = threading.Lock()
+        self._mesh_open = True
+        # device calls this rank ran on the mesh, by batcher kind
+        self.mesh_calls: Dict[str, int] = {}
         # full-speed replay benches must hold the whole backlog, or the
         # pool's drop-oldest backpressure loses blocks
         self.ingest_queue_cap = ingest_queue_cap
@@ -168,13 +190,17 @@ class SttServingEngine:
             return cfg, params, WhisperDetokenizer()
 
         self._cfg, self._params, self._detok = await loop.run_in_executor(None, build)
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_params
+
+            self._params = shard_params(self.mesh, self._params, self._cfg)
         self._lang_index = language_index(self.language)
         cfg = self._cfg
         self._prefix = np.asarray(
             [cfg.token_sot, cfg.token_language(self._lang_index), cfg.token_transcribe, cfg.token_no_timestamps],
             np.int32,
         )
-        self._ring = get_audio_ring(dev)
+        self._ring = get_audio_ring(dev, mesh=self.mesh)
         model_tag = f"{self.model_path or self.model_size}:{self._lang_index}:{self.max_tokens}:{self.dtype}"
         # table width = engine capacity (the identity-packed step is B =
         # table width); dec_t sized to the token budget, 64-aligned (the
@@ -182,7 +208,7 @@ class SttServingEngine:
         dec_t = min(int(os.environ.get("SK_STREAM_DEC_T", "128")),
                     max(64, -(-(len(self._prefix) + self.max_tokens + 8) // 64) * 64))
         self._tbl = get_stream_table(
-            model_tag, cfg, self.dtype, device=dev,
+            model_tag, cfg, self.dtype, device=dev, mesh=self.mesh,
             max_slots=min(self.max_sessions, int(os.environ.get("SK_STREAM_SLOTS", "64"))), dec_t=dec_t,
         )
         self._sstep_kind = f"stream_step:{model_tag}:{self.vad_block}"
@@ -195,16 +221,20 @@ class SttServingEngine:
         params, ring, tbl = self._params, self._ring, self._tbl
         # chunk budget per call: the encode rate must cover the block rate
         self._n_chunks = max(2, -(-self.block_samples // CHUNK_SAMPLES))
-        batched_sstep = tbl.identity_step_fn(params, ring, ring.trash_slot(), self._stream_steps,
-                                             n_chunks=self._n_chunks, trace_calls=self.trace_calls)
+        batched_sstep = self._device_call(
+            self._sstep_kind,
+            tbl.identity_step_fn(params, ring, ring.trash_slot(), self._stream_steps, n_chunks=self._n_chunks,
+                                 trace_calls=self.trace_calls),
+        )
         stream_pad = int(os.environ.get("SK_STREAM_PAD", str(min(64, tbl.max_slots))))
         # with `expected` coalescing a co-paced period fires once every
         # active session's block is in; the window only bounds stragglers
         block_ms = self.block_samples * 1000.0 / _SR
-        self.batcher.register(
-            self._sstep_kind, batched_sstep, pad_to=stream_pad,
-            gather_ms=float(os.environ.get("SK_STREAM_GATHER_MS", str(0.8 * block_ms))), host_inputs=True,
-        )
+        if self._leader:
+            self.batcher.register(
+                self._sstep_kind, batched_sstep, pad_to=stream_pad,
+                gather_ms=float(os.environ.get("SK_STREAM_GATHER_MS", str(0.8 * block_ms))), host_inputs=True,
+            )
 
         # exact bucketed ring decode: the primary path in "exact" mode, the
         # fallback in "stream" mode (frozen horizon, never-decoded segment)
@@ -217,12 +247,23 @@ class SttServingEngine:
                 return transcribe_ring(params, cfg, ring.ring_ref(), slot_ids, starts, lengths,
                                        window_samples=window, language_index=lang_rows, max_tokens=tok_budget)
 
-            return batched_stt
+            if self.mesh is None:
+                return batched_stt
+            from ..parallel.serving import dp_row_call
+
+            # each row on the dp rank that owns its ring slot
+            return lambda *rows: dp_row_call(ring, batched_stt, *rows)
 
         for b in self.window_buckets:
             tok_budget = min(self.max_tokens, max(12, int(b * 4) + 8))
-            self.batcher.register(f"{self._stt_kind}:{int(b * _SR)}", make_ring_stt(int(b * _SR), tok_budget),
-                                  pad_to=pad_stt, gather_ms=gather_ms)
+            kind = f"{self._stt_kind}:{int(b * _SR)}"
+            fn = self._device_call(kind, make_ring_stt(int(b * _SR), tok_budget))
+            if self._leader:
+                # on a mesh the inputs stay on the host: they are broadcast
+                self.batcher.register(kind, fn, pad_to=pad_stt, gather_ms=gather_ms,
+                                      host_inputs=self.mesh is not None)
+        if not self._leader:
+            return
 
         self.pool = IngestPool(self.max_sessions, self.block_samples, queue_cap=self.ingest_queue_cap)
         self.batcher.start()
@@ -230,6 +271,8 @@ class SttServingEngine:
         self._drain_task = asyncio.ensure_future(self._drain_loop())
 
     async def stop(self) -> None:
+        if not self._leader:
+            return
         self._running = False
         for s in list(self._sessions.values()):
             self.close_session(s.sid)
@@ -251,6 +294,47 @@ class SttServingEngine:
             self.batcher.stop()
         if self.pool is not None:
             self.pool.close()
+        if self.mesh is not None:
+            with self._mesh_lock:  # after any call in flight: the followers return
+                self._mesh_open = False
+                dist.broadcast_object_list([None], src=0)
+
+    # -- mesh ----------------------------------------------------------------
+    def _device_call(self, name: str, fn: Callable) -> Callable:
+        """``fn`` as the batcher calls it. On a mesh, rank 0's call first
+        broadcasts ``(name, inputs, pending VAD resets)`` so every rank runs
+        the same calls in the same order (one at a time: their collectives
+        must pair up)."""
+        self._mesh_fns[name] = fn
+        if self.mesh is None:
+            return fn
+
+        def call(*inputs):
+            with self._mesh_lock:
+                if not self._mesh_open:
+                    raise RuntimeError("the engine has stopped")
+                msg = (name, tuple(np.asarray(a) for a in inputs), self._ring.take_resets())
+                dist.broadcast_object_list([msg], src=0)
+                return self._run_call(*msg)
+
+        return call
+
+    def _run_call(self, name: str, inputs, resets):
+        self._ring.reset_slots(resets)
+        self.mesh_calls[name] = self.mesh_calls.get(name, 0) + 1
+        return self._mesh_fns[name](*inputs)
+
+    def follow(self) -> None:
+        """On a mesh rank other than 0 (after :meth:`start`): run rank 0's
+        device calls on this rank's shards until rank 0 stops."""
+        if self._leader:
+            raise RuntimeError("follow() runs on the ranks other than 0")
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0)
+            if msg[0] is None:
+                return
+            self._run_call(*msg[0])
 
     # -- sessions ------------------------------------------------------------
     def open_session(self, on_event: Callable[[dict], None]) -> int:
@@ -258,11 +342,15 @@ class SttServingEngine:
         :meth:`push` / :meth:`start_replay`). ``on_event`` receives
         ``{type: partial|final|speech_start|speech_end, text?, start_ms?,
         end_ms?, seq}`` on the event-loop thread."""
-        vad_slot = self._ring.alloc()
         stream_id = self._tbl.try_alloc()
         if stream_id is None:
-            self._ring.free(vad_slot)
             raise RuntimeError("stream table full")
+        shard = self._tbl.shard  # on a mesh the ring slot goes on the stream slot's dp rank
+        try:
+            vad_slot = self._ring.alloc(dp_rank=None if shard is None else int(shard.owner(stream_id)))
+        except RuntimeError:
+            self._tbl.free(stream_id)
+            raise
         sid = self.pool.open()
         s = _Session(
             sid=sid, vad_slot=vad_slot, stream_id=stream_id, on_event=on_event,

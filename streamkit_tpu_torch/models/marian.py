@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.tensor_parallel import embed_rows, project_vocab, tp_matmul
 from . import params_to_torch
 from .seq2seq import beam_decode, init_decoder_cache
 
@@ -131,13 +132,15 @@ def _ln(x, p):
 
 
 def _dense(x, p):
-    return torch.matmul(x, p["w"]) + p["b"]
+    return tp_matmul(x, p["w"]) + p["b"]
 
 
-def _attn(q, k, v, n_head, bias=None):
+def _attn(q, k, v, hd: int, bias=None):
+    """Attention over heads of ``hd``; the head count follows ``q``'s width
+    (this rank's heads under tensor parallelism)."""
     b, tq, d = q.shape
     tk = k.shape[1]
-    hd = d // n_head
+    n_head = d // hd
 
     def heads(x, t):
         return x.reshape(b, t, n_head, hd).transpose(1, 2)
@@ -159,13 +162,13 @@ def marian_encode(params, cfg: MarianConfig, tokens: torch.Tensor) -> Tuple[torc
     """``tokens [b, t]`` → (hidden states, cross-attention bias)."""
     tokens = tokens.long()
     t = tokens.shape[-1]
-    x = params["emb"][tokens] * _scale(params, cfg)
+    x = embed_rows(params["emb"], tokens) * _scale(params, cfg)
     x = x + params["pos"][:t].to(x.dtype)[None, :, :]
     pad_bias = torch.zeros(tokens.shape, dtype=torch.float32, device=tokens.device)
     bias = pad_bias.masked_fill(tokens == cfg.pad_token_id, float("-inf"))[:, None, None, :]
     for layer in params["enc_layers"]:
         a = _attn(_dense(x, layer["attn"]["q"]), _dense(x, layer["attn"]["k"]), _dense(x, layer["attn"]["v"]),
-                  cfg.heads, bias)
+                  cfg.d_model // cfg.heads, bias)
         x = _ln(x + _dense(a, layer["attn"]["o"]), layer["ln1"])  # post-LN
         h = _dense(torch.nn.functional.silu(_dense(x, layer["fc1"])), layer["fc2"])
         x = _ln(x + h, layer["ln2"])
@@ -173,22 +176,24 @@ def marian_encode(params, cfg: MarianConfig, tokens: torch.Tensor) -> Tuple[torc
 
 
 def _logits(params, x):
-    return torch.matmul(x, params["emb"].T.to(x.dtype)).float() + params["logits_bias"]
+    # logits_bias follows emb's vocab split
+    return project_vocab(x, params["emb"],
+                         lambda x, e: torch.matmul(x, e.T.to(x.dtype)).float() + params["logits_bias"])
 
 
 def marian_decode_logits(params, cfg: MarianConfig, dec_tokens, enc_states, enc_bias) -> torch.Tensor:
     """Teacher-forced decoder pass → logits [b, t, vocab]."""
     dec_tokens = dec_tokens.long()
     t = dec_tokens.shape[-1]
-    x = params["emb"][dec_tokens] * _scale(params, cfg)
+    x = embed_rows(params["emb"], dec_tokens) * _scale(params, cfg)
     x = x + params["pos"][:t].to(x.dtype)[None, :, :]
     causal = torch.triu(torch.full((t, t), float("-inf"), device=x.device), diagonal=1)
     for layer in params["dec_layers"]:
         a = _attn(_dense(x, layer["attn"]["q"]), _dense(x, layer["attn"]["k"]), _dense(x, layer["attn"]["v"]),
-                  cfg.heads, causal)
+                  cfg.d_model // cfg.heads, causal)
         x = _ln(x + _dense(a, layer["attn"]["o"]), layer["ln1"])
         a = _attn(_dense(x, layer["xattn"]["q"]), _dense(enc_states, layer["xattn"]["k"]),
-                  _dense(enc_states, layer["xattn"]["v"]), cfg.heads, enc_bias)
+                  _dense(enc_states, layer["xattn"]["v"]), cfg.d_model // cfg.heads, enc_bias)
         x = _ln(x + _dense(a, layer["xattn"]["o"]), layer["ln_x"])
         h = _dense(torch.nn.functional.silu(_dense(x, layer["fc1"])), layer["fc2"])
         x = _ln(x + h, layer["ln2"])
@@ -196,7 +201,7 @@ def marian_decode_logits(params, cfg: MarianConfig, dec_tokens, enc_states, enc_
 
 
 def _marian_init_cache(params, cfg: MarianConfig, enc_states, max_t: int):
-    return init_decoder_cache(params["dec_layers"], enc_states, cfg.d_model, max_t, _dense)
+    return init_decoder_cache(params["dec_layers"], enc_states, max_t, _dense)
 
 
 def marian_decode_step(params, cfg: MarianConfig, tok, step: int, cache, enc_bias):
@@ -206,15 +211,15 @@ def marian_decode_step(params, cfg: MarianConfig, tok, step: int, cache, enc_bia
     if not 0 <= step < min(max_t, params["pos"].shape[0]):
         raise ValueError(f"decode step {step} is outside the cache ({max_t}) or the position table")
     emb = params["emb"]
-    x = (emb[tok.long()] * _scale(params, cfg) + params["pos"][step].to(emb.dtype))[:, None, :]
+    x = (embed_rows(emb, tok.long()) * _scale(params, cfg) + params["pos"][step].to(emb.dtype))[:, None, :]
     self_mask = torch.zeros(max_t, device=x.device)
     self_mask[step + 1:] = float("-inf")
     for layer, (sk, sv, ck, cv) in zip(params["dec_layers"], cache):
         sk[:, step] = _dense(x, layer["attn"]["k"])[:, 0]
         sv[:, step] = _dense(x, layer["attn"]["v"])[:, 0]
-        a = _attn(_dense(x, layer["attn"]["q"]), sk, sv, cfg.heads, self_mask)
+        a = _attn(_dense(x, layer["attn"]["q"]), sk, sv, cfg.d_model // cfg.heads, self_mask)
         x = _ln(x + _dense(a, layer["attn"]["o"]), layer["ln1"])
-        a = _attn(_dense(x, layer["xattn"]["q"]), ck, cv, cfg.heads, enc_bias)
+        a = _attn(_dense(x, layer["xattn"]["q"]), ck, cv, cfg.d_model // cfg.heads, enc_bias)
         x = _ln(x + _dense(a, layer["xattn"]["o"]), layer["ln_x"])
         h = _dense(torch.nn.functional.silu(_dense(x, layer["fc1"])), layer["fc2"])
         x = _ln(x + h, layer["ln2"])

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.tensor_parallel import embed_rows, project_vocab, tp_matmul
 from . import params_to_torch
 from .seq2seq import beam_decode, init_decoder_cache
 
@@ -132,7 +133,7 @@ def _ln(x, p):
 
 
 def _dense(x, p):
-    return torch.matmul(x, p["w"]) + p["b"]
+    return tp_matmul(x, p["w"]) + p["b"]
 
 
 def _heads(x, n):
@@ -145,8 +146,14 @@ def _unheads(x):
     return x.transpose(-3, -2).reshape(*lead, t, h * hd)
 
 
-def _attn(q, k, v, n_head, mask=None):
-    hd = q.shape[-1] // n_head
+def _hd(cfg: NllbConfig) -> int:
+    return cfg.d_model // cfg.heads
+
+
+def _attn(q, k, v, hd: int, mask=None):
+    """Attention over heads of ``hd``; the head count follows ``q``'s width
+    (this rank's heads under tensor parallelism)."""
+    n_head = q.shape[-1] // hd
     qh = _heads(q, n_head) * torch.tensor(hd ** -0.5, dtype=q.dtype, device=q.device)  # M2M100 scales q only
     kh, vh = _heads(k, n_head), _heads(v, n_head)
     scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
@@ -165,7 +172,7 @@ def _positions_for(tokens: torch.Tensor, pad_id: int, offset: int = 0) -> torch.
 def _embed(params, cfg: NllbConfig, tokens, pos_ids):
     emb = params["emb"]
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device)
-    return emb[tokens] * scale + params["pos"][pos_ids].to(emb.dtype)
+    return embed_rows(emb, tokens) * scale + params["pos"][pos_ids].to(emb.dtype)
 
 
 def nllb_encode(params, cfg: NllbConfig, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -178,7 +185,7 @@ def nllb_encode(params, cfg: NllbConfig, tokens: torch.Tensor) -> Tuple[torch.Te
     for layer in params["enc_layers"]:
         h = _ln(x, layer["ln1"])
         a = _attn(_dense(h, layer["attn"]["q"]), _dense(h, layer["attn"]["k"]), _dense(h, layer["attn"]["v"]),
-                  cfg.heads, bias)
+                  _hd(cfg), bias)
         x = x + _dense(a, layer["attn"]["o"])
         h = _ln(x, layer["ln2"])
         x = x + _dense(torch.relu(_dense(h, layer["fc1"])), layer["fc2"])
@@ -186,7 +193,7 @@ def nllb_encode(params, cfg: NllbConfig, tokens: torch.Tensor) -> Tuple[torch.Te
 
 
 def _logits(params, x):
-    return torch.matmul(x, params["emb"].T.to(x.dtype)).float()
+    return project_vocab(x, params["emb"], lambda x, e: torch.matmul(x, e.T.to(x.dtype)).float())
 
 
 def nllb_decode_logits(params, cfg: NllbConfig, dec_tokens, enc_states, enc_bias) -> torch.Tensor:
@@ -198,11 +205,11 @@ def nllb_decode_logits(params, cfg: NllbConfig, dec_tokens, enc_states, enc_bias
     for layer in params["dec_layers"]:
         h = _ln(x, layer["ln1"])
         a = _attn(_dense(h, layer["attn"]["q"]), _dense(h, layer["attn"]["k"]), _dense(h, layer["attn"]["v"]),
-                  cfg.heads, causal)
+                  _hd(cfg), causal)
         x = x + _dense(a, layer["attn"]["o"])
         h = _ln(x, layer["ln_x"])
         a = _attn(_dense(h, layer["xattn"]["q"]), _dense(enc_states, layer["xattn"]["k"]),
-                  _dense(enc_states, layer["xattn"]["v"]), cfg.heads, enc_bias)
+                  _dense(enc_states, layer["xattn"]["v"]), _hd(cfg), enc_bias)
         x = x + _dense(a, layer["xattn"]["o"])
         h = _ln(x, layer["ln2"])
         x = x + _dense(torch.relu(_dense(h, layer["fc1"])), layer["fc2"])
@@ -210,7 +217,7 @@ def nllb_decode_logits(params, cfg: NllbConfig, dec_tokens, enc_states, enc_bias
 
 
 def _nllb_init_cache(params, cfg: NllbConfig, enc_states, max_t: int):
-    return init_decoder_cache(params["dec_layers"], enc_states, cfg.d_model, max_t, _dense)
+    return init_decoder_cache(params["dec_layers"], enc_states, max_t, _dense)
 
 
 def nllb_decode_step(params, cfg: NllbConfig, tok, step: int, cache, enc_bias):
@@ -226,17 +233,17 @@ def nllb_decode_step(params, cfg: NllbConfig, tok, step: int, cache, enc_bias):
         raise ValueError(f"decode step {step} is outside the cache ({max_t}) or the position table")
     emb = params["emb"]
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device)
-    x = (emb[tok.long()] * scale + params["pos"][pos_id].to(emb.dtype))[:, None, :]
+    x = (embed_rows(emb, tok.long()) * scale + params["pos"][pos_id].to(emb.dtype))[:, None, :]
     self_mask = torch.zeros(max_t, device=x.device)
     self_mask[step + 1:] = float("-inf")
     for layer, (sk, sv, ck, cv) in zip(params["dec_layers"], cache):
         h = _ln(x, layer["ln1"])
         sk[:, step] = _dense(h, layer["attn"]["k"])[:, 0]
         sv[:, step] = _dense(h, layer["attn"]["v"])[:, 0]
-        a = _attn(_dense(h, layer["attn"]["q"]), sk, sv, cfg.heads, self_mask)
+        a = _attn(_dense(h, layer["attn"]["q"]), sk, sv, _hd(cfg), self_mask)
         x = x + _dense(a, layer["attn"]["o"])
         h = _ln(x, layer["ln_x"])
-        a = _attn(_dense(h, layer["xattn"]["q"]), ck, cv, cfg.heads, enc_bias)
+        a = _attn(_dense(h, layer["xattn"]["q"]), ck, cv, _hd(cfg), enc_bias)
         x = x + _dense(a, layer["xattn"]["o"])
         h = _ln(x, layer["ln2"])
         x = x + _dense(torch.relu(_dense(h, layer["fc1"])), layer["fc2"])

@@ -4,6 +4,7 @@
 Port of ``streamkit_tpu/models/seq2seq.py``. One definition of the
 per-decoder-layer ``(self_k, self_v, cross_k, cross_v)`` cache (cross K/V
 computed once from the encoder states, self K/V preallocated ``[b, max_t, d]``
+(``d/tp``: this rank's heads, under tensor parallelism)
 buffers written in place step by step) and the batched beam search.
 
 The reference's ``lax.while_loop`` becomes a Python loop that stops where its
@@ -25,7 +26,6 @@ _NEG = -1e30  # the reference's "minus infinity" for beams (finite, so 0 * it st
 def init_decoder_cache(
     dec_layers,
     enc_states: torch.Tensor,
-    d_model: int,
     max_t: int,
     dense: Callable,
 ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
@@ -34,7 +34,7 @@ def init_decoder_cache(
     for layer in dec_layers:
         ck = dense(enc_states, layer["xattn"]["k"])
         cv = dense(enc_states, layer["xattn"]["v"])
-        sk = enc_states.new_zeros((b, max_t, d_model))
+        sk = enc_states.new_zeros((b, max_t, layer["attn"]["k"]["w"].shape[-1]))
         cache.append((sk, torch.zeros_like(sk), ck, cv))
     return cache
 

@@ -13,7 +13,13 @@ the reference step by step:
 * encoder self-attention goes through the hand-written flash kernel on CUDA
   whenever the reference's gate holds (no mask, 4-d, T ≥ 256, hd % 64 == 0),
 * the decoder's KV cache is updated **in place** (the reference's
-  ``dynamic_update_slice`` is functional); see :func:`decode_step`.
+  ``dynamic_update_slice`` is functional); see :func:`decode_step`,
+* under tensor parallelism (:func:`...parallel.mesh.shard_params`) the
+  helpers read each local leaf's placement: attention takes its heads from
+  the local q width, a row-parallel ``_dense`` sums its partial product over
+  tp before adding its bias once, and the vocab-sharded ``tok_emb`` embeds
+  and projects through :mod:`...ops.tensor_parallel`. Whole leaves take the
+  one-device path unchanged.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 
 from ...device import resolve_device, strict_fp32
 from ...ops.attention import flash_attention
+from ...ops.tensor_parallel import embed_rows, project_vocab, tp_matmul
 from .config import WhisperConfig
 
 __all__ = [
@@ -213,15 +220,23 @@ def _layernorm(x, p):
 
 
 def _dense(x, p):
-    y = torch.matmul(x, p["w"])
+    y = tp_matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
 
 
-def _split_heads(x, n_head):
+def _logits(x, emb, emb_dtype: torch.dtype = torch.float32):
+    """f32 logits ``x · embᵀ`` with ``emb`` rounded to ``emb_dtype`` first
+    (over tp: this rank's vocab block, gathered)."""
+    return project_vocab(x.float(), emb, lambda x32, e: torch.matmul(x32, e.to(emb_dtype).float().T))
+
+
+def _split_heads(x, hd: int):
+    """``[..., t, h·hd]`` → ``[..., h, t, hd]``: the head count follows the
+    (local) width."""
     *lead, t, d = x.shape
-    return x.reshape(*lead, t, n_head, d // n_head).transpose(-3, -2)  # [..., h, t, hd]
+    return x.reshape(*lead, t, d // hd, hd).transpose(-3, -2)
 
 
 def _merge_heads(x):
@@ -229,16 +244,16 @@ def _merge_heads(x):
     return x.transpose(-3, -2).reshape(*lead, t, h * hd)
 
 
-def _attention(q, k, v, n_head, mask=None):
-    """Scaled dot-product attention. q,k,v: ``[..., t, d]``.
+def _attention(q, k, v, hd: int, mask=None):
+    """Scaled dot-product attention over heads of ``hd``. q,k,v: ``[..., t,
+    d]`` (``d`` the local width: the head count follows it).
 
     Non-causal full-sequence attention (the encoder) goes through the flash
     kernel on CUDA; masked and short cases use plain attention."""
-    hd = q.shape[-1] // n_head
     scale = hd ** -0.25
-    qh = _split_heads(q, n_head)
-    kh = _split_heads(k, n_head)
-    vh = _split_heads(v, n_head)
+    qh = _split_heads(q, hd)
+    kh = _split_heads(k, hd)
+    vh = _split_heads(v, hd)
     if mask is None and qh.ndim == 4 and qh.shape[-2] >= 256 and hd % 64 == 0:
         return _merge_heads(flash_attention(qh, kh, vh, scale))
     scores = torch.matmul((qh * scale).float(), (kh * scale).transpose(-1, -2).float())
@@ -282,7 +297,7 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tenso
             _dense(h, layer["attn"]["q"]),
             _dense(h, layer["attn"]["k"]),
             _dense(h, layer["attn"]["v"]),
-            cfg.n_audio_head,
+            cfg.n_audio_state // cfg.n_audio_head,
         )
         x = x + _dense(attn, layer["attn"]["o"])
         x = x + _mlp(_layernorm(x, layer["ln2"]), layer)
@@ -315,17 +330,18 @@ def decode_logits(
         raise ValueError(f"{t} tokens exceed n_text_ctx={cfg.n_text_ctx}")
     # F.embedding: the same gather, with a deterministic backward (indexing's
     # accumulating backward sums in a varying order), so a train step repeats
-    x = F.embedding(tokens, d["tok_emb"]) + d["pos_emb"][:t]
+    x = embed_rows(d["tok_emb"], tokens) + d["pos_emb"][:t]
     causal = torch.triu(
         torch.full((t, t), float("-inf"), dtype=torch.float32, device=x.device), diagonal=1
     )
+    hd = cfg.n_text_state // cfg.n_text_head
     for layer in d["layers"]:
         h = _layernorm(x, layer["ln1"])
         attn = _attention(
             _dense(h, layer["attn"]["q"]),
             _dense(h, layer["attn"]["k"]),
             _dense(h, layer["attn"]["v"]),
-            cfg.n_text_head,
+            hd,
             mask=causal,
         )
         x = x + _dense(attn, layer["attn"]["o"])
@@ -334,12 +350,11 @@ def decode_logits(
             _dense(hx, layer["xattn"]["q"]),
             _dense(audio_states, layer["xattn"]["k"]),
             _dense(audio_states, layer["xattn"]["v"]),
-            cfg.n_text_head,
+            hd,
         )
         x = x + _dense(xattn, layer["xattn"]["o"])
         x = x + _mlp(_layernorm(x, layer["ln2"]), layer)
-    x = _layernorm(x, d["ln"])
-    return torch.matmul(x.float(), d["tok_emb"].float().T)
+    return _logits(_layernorm(x, d["ln"]), d["tok_emb"])
 
 
 class KVCache(NamedTuple):
@@ -389,19 +404,18 @@ def init_kv_cache(
     dtype = audio_states.dtype
     layers = params["dec"]["layers"]
     xk = torch.stack(
-        [_split_heads(_dense(audio_states, l["xattn"]["k"]), cfg.n_text_head).transpose(-1, -2)
-         for l in layers]
+        [_split_heads(_dense(audio_states, l["xattn"]["k"]), hd).transpose(-1, -2) for l in layers]
     )
     xv = torch.stack(
-        [_split_heads(_dense(audio_states, l["xattn"]["v"]), cfg.n_text_head).transpose(-1, -2)
-         for l in layers]
+        [_split_heads(_dense(audio_states, l["xattn"]["v"]), hd).transpose(-1, -2) for l in layers]
     )
     empty = torch.zeros((0,), dtype=torch.float32, device=audio_states.device)
     xk_scale = xv_scale = empty
     if cross_kv_int8:
         xk, xk_scale = _quantize_tmaj(xk)
         xv, xv_scale = _quantize_tmaj(xv)
-    shape = (cfg.n_text_layer, batch, cfg.n_text_head, hd, max_len)
+    # the self-attention heads of this rank (all of them on one device)
+    shape = (cfg.n_text_layer, batch, layers[0]["attn"]["k"]["w"].shape[-1] // hd, hd, max_len)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=audio_states.device),
         v=torch.zeros(shape, dtype=dtype, device=audio_states.device),
@@ -450,15 +464,15 @@ def decode_step(
     max_len = cache.k.shape[-1]
     if pos >= max_len or pos >= cfg.n_text_ctx:
         raise ValueError(f"decode position {pos} beyond the cache ({max_len}) or n_text_ctx")
-    x = d["tok_emb"][tokens][:, None, :] + d["pos_emb"][pos : pos + 1]
+    x = embed_rows(d["tok_emb"], tokens)[:, None, :] + d["pos_emb"][pos : pos + 1]
     dtype = x.dtype
     hd = cfg.n_text_state // cfg.n_text_head
     scale = hd ** -0.25
     for i, layer in enumerate(d["layers"]):
         h = _layernorm(x, layer["ln1"])
-        q = _split_heads(_dense(h, layer["attn"]["q"]), cfg.n_text_head)  # [b, h, 1, hd]
-        k1 = _split_heads(_dense(h, layer["attn"]["k"]), cfg.n_text_head)
-        v1 = _split_heads(_dense(h, layer["attn"]["v"]), cfg.n_text_head)
+        q = _split_heads(_dense(h, layer["attn"]["q"]), hd)  # [b, h, 1, hd]
+        k1 = _split_heads(_dense(h, layer["attn"]["k"]), hd)
+        v1 = _split_heads(_dense(h, layer["attn"]["v"]), hd)
         cache.k[i, :, :, :, pos] = k1[:, :, 0, :]
         cache.v[i, :, :, :, pos] = v1[:, :, 0, :]
         attn = _tmaj_attend(
@@ -466,7 +480,7 @@ def decode_step(
         )
         x = x + _dense(attn, layer["attn"]["o"])
         hx = _layernorm(x, layer["ln_x"])
-        qx = _split_heads(_dense(hx, layer["xattn"]["q"]), cfg.n_text_head)
+        qx = _split_heads(_dense(hx, layer["xattn"]["q"]), hd)
         if cache.cross_quantized:
             # int8 K can't absorb the d**-0.25: fold both scales into q
             xattn = _tmaj_attend(
@@ -477,6 +491,5 @@ def decode_step(
             xattn = _tmaj_attend(qx * scale, cache.xk[i] * scale, cache.xv[i], dtype)
         x = x + _dense(xattn, layer["xattn"]["o"])
         x = x + _mlp(_layernorm(x, layer["ln2"]), layer)
-    x = _layernorm(x, d["ln"])
-    logits = torch.matmul(x[:, 0].float(), d["tok_emb"].float().T)
+    logits = _logits(_layernorm(x, d["ln"])[:, 0], d["tok_emb"])
     return logits, cache._replace(pos=pos + 1)

@@ -41,6 +41,13 @@ tensors. Float tables and the general (gathered-row) mode keep the
 reference's eager formulation and scatter, as the reference does outside its
 gates.
 
+On a mesh (:func:`...parallel.serving.shard_stream_table`) a table holds
+this rank's ``[L, S/dp, H/tp, hd, T]`` caches and ``S/dp`` slot vectors; the
+fused step takes the rows of this rank's slots (global ids in, local rows
+run), the model helpers sum over tp, and :meth:`StreamTable.identity_step_fn`
+gathers the rows over dp. The standalone ``encode_chunks`` and
+``decode_steps`` stay one-device.
+
 In-place state: the caches are written in place (the reference donates
 them). The small per-slot vectors (tokens, counters, positions) are replaced
 by new tensors on every call, so a tensor handed back to a caller is never
@@ -66,7 +73,8 @@ from ...ops import cache_write, stream_attention
 from ...ops.mel import HOP_LENGTH, N_FFT, _dft_bases, _mel_mat, frame_signal
 from ...ops.stream_attention import scaled_operand
 from .config import WhisperConfig
-from .model import Params, _dense, _layernorm, _merge_heads, _mlp, _split_heads
+from ...ops.tensor_parallel import embed_rows
+from .model import Params, _dense, _layernorm, _logits, _merge_heads, _mlp, _split_heads
 
 __all__ = [
     "StreamTable",
@@ -276,8 +284,7 @@ def _encode_core(
     p = pos_rows.long()[:, None] + torch.arange(n_pos, device=dev)
     x = x + e["pos"].to(dtype)[torch.clamp(p, max=e["pos"].shape[0] - 1)]
 
-    He = cfg.n_audio_head
-    hde = cfg.n_audio_state // He
+    hde = cfg.n_audio_state // cfg.n_audio_head
     hd_scale = hde ** -0.25
     # history: visible below each row's position; candidates: block-causal
     # within the call (a query in chunk j sees candidate j2 < (j//8+1)*8,
@@ -293,9 +300,9 @@ def _encode_core(
     cand_ks, cand_vs = [], []
     for li, layer in enumerate(e["layers"]):
         h = _layernorm(x, layer["ln1"])
-        q = _split_heads(_dense(h, layer["attn"]["q"]), He)  # [B,H,c,hd]
-        k = _split_heads(_dense(h, layer["attn"]["k"]), He)
-        v = _split_heads(_dense(h, layer["attn"]["v"]), He)
+        q = _split_heads(_dense(h, layer["attn"]["q"]), hde)  # [B,H,c,hd], this rank's heads
+        k = _split_heads(_dense(h, layer["attn"]["k"]), hde)
+        v = _split_heads(_dense(h, layer["attn"]["v"]), hde)
         kq = _quant_like(ek, k.transpose(-1, -2))
         vq = _quant_like(ev, v.transpose(-1, -2))
         cand_ks.append(kq)
@@ -323,9 +330,10 @@ def _encode_core(
     enc_out = _layernorm(x, e["ln_post"])  # [B, c, d]
 
     cand_xk, cand_xv = [], []
+    hdt = cfg.n_text_state // cfg.n_text_head
     for layer in params["dec"]["layers"]:
-        kx = _split_heads(_dense(enc_out, layer["xattn"]["k"]), cfg.n_text_head)
-        vx = _split_heads(_dense(enc_out, layer["xattn"]["v"]), cfg.n_text_head)
+        kx = _split_heads(_dense(enc_out, layer["xattn"]["k"]), hdt)
+        vx = _split_heads(_dense(enc_out, layer["xattn"]["v"]), hdt)
         cand_xk.append(_quant_like(xkr, kx.transpose(-1, -2)))
         cand_xv.append(_quant_like(xvr, vx.transpose(-1, -2)))
 
@@ -362,8 +370,9 @@ def _decode_core(
     dtype = params["enc"]["pos"].dtype
     dev = tok.device
     eot = cfg.token_eot
-    Ld, Ht = cfg.n_text_layer, cfg.n_text_head
-    hd = cfg.n_text_state // Ht
+    Ld = cfg.n_text_layer
+    hd = cfg.n_text_state // cfg.n_text_head
+    Ht = d["layers"][0]["attn"]["k"]["w"].shape[-1] // hd  # this rank's heads
     dec_t = dk.shape[-1]
     scale = hd ** -0.25
     b = tok.shape[0]
@@ -387,21 +396,20 @@ def _decode_core(
     scol = torch.arange(max_steps, device=dev)
     done = ~active0
     fold_n = torch.zeros((b,), dtype=torch.int32, device=dev)
-    tok_emb_t = d["tok_emb"].to(dtype).T
 
     for i in range(max_steps):
         active = ~done & (n_r > 0) & (ep > 0)
         fold_n = fold_n + active.to(torch.int32)
         feed_idx = torch.clamp(feed0 + i, max=dec_t - 1).long()
         cur = tok[bi, feed_idx].long()
-        x = (d["tok_emb"][cur][:, None, :] + d["pos_emb"][feed_idx][:, None, :]).to(dtype)
+        x = (embed_rows(d["tok_emb"], cur)[:, None, :] + d["pos_emb"][feed_idx][:, None, :]).to(dtype)
         dmask = torch.where(scol < i, 0.0, ninf).reshape(1, 1, 1, max_steps)
         kcols, vcols = [], []
         for li, layer in enumerate(d["layers"]):
             h = _layernorm(x, layer["ln1"])
-            q = _split_heads(_dense(h, layer["attn"]["q"]), Ht)  # [B,H,1,hd]
-            kcol = _split_heads(_dense(h, layer["attn"]["k"]), Ht).transpose(-1, -2)  # [B,H,hd,1]
-            vcol = _split_heads(_dense(h, layer["attn"]["v"]), Ht).transpose(-1, -2)
+            q = _split_heads(_dense(h, layer["attn"]["q"]), hd)  # [B,H,1,hd]
+            kcol = _split_heads(_dense(h, layer["attn"]["k"]), hd).transpose(-1, -2)  # [B,H,hd,1]
+            vcol = _split_heads(_dense(h, layer["attn"]["v"]), hd).transpose(-1, -2)
             kcols.append(kcol)
             vcols.append(vcol)
             qs = _scaled(q, scale)
@@ -420,7 +428,7 @@ def _decode_core(
                 + _mm32(probs[..., dec_t + max_steps :], vcol.transpose(-1, -2))
             ).to(dtype)
             x = x + _dense(_merge_heads(attn), layer["attn"]["o"])
-            qx = _split_heads(_dense(_layernorm(x, layer["ln_x"]), layer["xattn"]["q"]), Ht)
+            qx = _split_heads(_dense(_layernorm(x, layer["ln_x"]), layer["xattn"]["q"]), hd)
             xs = _scores_rows(_scaled(qx, scale), _read_layer(xkr, li, hist_ids), scale, dtype)
             xp = torch.softmax(xs + xmask, dim=-1)
             xa = _attend_rows(xp, _read_layer(xvr, li, hist_ids), dtype).to(dtype)
@@ -430,7 +438,7 @@ def _decode_core(
         # lanes that the fold's per-row count skips)
         kd[..., i] = torch.stack(kcols)[..., 0]
         vd[..., i] = torch.stack(vcols)[..., 0]
-        logits = _mm32(_layernorm(x, d["ln"])[:, 0], tok_emb_t)  # [B, vocab]
+        logits = _logits(_layernorm(x, d["ln"])[:, 0], d["tok_emb"], dtype)  # [B, vocab]
         if suppress_bias is not None:
             logits = logits + suppress_bias
         if begin_bias is not None:
@@ -578,6 +586,7 @@ class StreamTable:
         self._free = list(range(s - 1, -1, -1))
         self._alloc_lock = threading.Lock()
         self._step_lock = threading.Lock()
+        self.shard = None  # this rank's SlotShard on a mesh (the allocator stays global)
 
     # -- slot lifecycle ------------------------------------------------------
     def try_alloc(self) -> Optional[int]:
@@ -591,11 +600,34 @@ class StreamTable:
     def _ids(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=self.device)
 
+    def _one_device(self, what: str) -> None:
+        if self.shard is not None:
+            raise ValueError(f"{what} runs on one device; a sharded table steps through step()")
+
+    def _local_rows(self, meta: np.ndarray, frames, audio_ring):
+        """The rows of this rank's slots with local ids: stream slots of this
+        dp rank, their ring slots (which must be on the same rank) and ``-1``
+        (this rank's trash row) made local."""
+        sh, rsh = self.shard, audio_ring.shard
+        own = np.flatnonzero(sh.owner(meta[:, 1]) == sh.rank)
+        meta = meta[own].copy()
+        ring_ids = meta[:, 0]
+        trash = ring_ids < 0
+        if (rsh.owner(ring_ids[~trash]) != rsh.rank).any():
+            raise ValueError("a row's ring slot and stream slot are on different dp ranks")
+        meta[:, 0] = np.where(trash, rsh.local, ring_ids - rsh.rank * rsh.local)
+        meta[:, 1] -= sh.rank * sh.local
+        return meta, frames[own]
+
     # -- steps ----------------------------------------------------------------
     @torch.no_grad()
     def reset(self, stream_id: int, prefix) -> None:
         """Open a new segment on ``stream_id``: prefix into the token buffer,
         counters to zero."""
+        if self.shard is not None:
+            if self.shard.owner(stream_id) != self.shard.rank:
+                return
+            stream_id -= self.shard.rank * self.shard.local
         prefix = self._ids(prefix)
         row = self._ids([stream_id]).long()
         with self._step_lock:
@@ -610,6 +642,7 @@ class StreamTable:
     def encode_chunks(self, params: Params, ring, slot_ids, stream_ids, starts, n_chunks: int = 1):
         """Batched standalone chunk encode (general mode) → per-row new
         encoder positions."""
+        self._one_device("encode_chunks")
         sid = self._ids(stream_ids)
         with self._step_lock:
             pos_new = _encode_core(
@@ -625,6 +658,7 @@ class StreamTable:
         """Batched standalone decode continuation (general mode) → (tokens
         ``[B, DEC_T]``, n_tok ``[B]``); this segment's new tokens are
         ``tokens[4:n_tok]``."""
+        self._one_device("decode_steps")
         sid = self._ids(stream_ids).long()
         with self._step_lock:
             tok, fed, n = _decode_core(
@@ -660,7 +694,11 @@ class StreamTable:
 
         Takes per-field arrays, or (``slot_ids`` 2-D) a packed ``meta`` of
         shape ``[B, META_COLS + META_PREFIX]``. A batch in slot order (B =
-        ``max_slots`` and ``meta[:, 1] == arange``) runs in identity mode."""
+        ``max_slots`` and ``meta[:, 1] == arange``) runs in identity mode.
+
+        On a mesh the ids are global and this rank runs the rows of its
+        slots (local rows in slot order run in identity mode); it returns
+        their outputs, or None when it owns none."""
         sl = np.asarray(slot_ids)
         if sl.ndim == 2:
             meta = sl.astype(np.int32)
@@ -676,7 +714,13 @@ class StreamTable:
                  np.asarray(prefix_b, np.int32).reshape(b, META_PREFIX)],
                 axis=1,
             )
-        identity = bool(meta.shape[0] == self.max_slots and np.array_equal(meta[:, 1], np.arange(self.max_slots)))
+        n_slots = self.max_slots
+        if self.shard is not None:
+            meta, frames_b = self._local_rows(meta, frames_b, audio_ring)
+            if meta.shape[0] == 0:
+                return None
+            n_slots = self.shard.local
+        identity = bool(meta.shape[0] == n_slots and np.array_equal(meta[:, 1], np.arange(n_slots)))
         if isinstance(frames_b, np.ndarray):
             from ...engine.audio_ring import pcm_to_wire
 
@@ -703,7 +747,12 @@ class StreamTable:
         meta rows (host arrays) are scattered into slot order so batch row p
         is stream slot p. Gap rows are inert: their ring writes park on
         ``trash_slot`` and ``n_req = do_dec = do_reset = 0`` leaves absent
-        sessions' state untouched."""
+        sessions' state untouched.
+
+        On a mesh every rank calls it with the same rows (the serving engine
+        broadcasts them); each runs its dp share of the slots and the rows'
+        outputs are all-gathered over dp (``trash_slot`` is ``-1``: each
+        rank's own trash row)."""
         from ...engine.audio_ring import pcm_to_wire
 
         n_slots = self.max_slots
@@ -720,7 +769,12 @@ class StreamTable:
             out = self.step(params, audio_ring, meta_s, None, None, None, None, None, frames_s, max_steps,
                             n_chunks=n_chunks)
             t_fetch = time.monotonic() if trace_calls is not None else 0.0
-            probs, tok_rows, n_rows, pos_new = (o.cpu().numpy() for o in out)
+            if self.shard is None:
+                probs, tok_rows, n_rows, pos_new = (o.cpu().numpy() for o in out)
+            else:
+                from ...parallel.serving import gather_rows
+
+                probs, tok_rows, n_rows, pos_new = gather_rows(self.shard, *out)
             if trace_calls is not None:
                 trace_calls.append((t_in, meta.shape[0], t_fetch, time.monotonic()))
             return probs[perm], tok_rows[perm], n_rows[perm], pos_new[perm]
@@ -740,22 +794,33 @@ class StreamTable:
         return cache.float().cpu().numpy().transpose(1, 0, 2, 3, 4)
 
 
-# process-wide tables keyed by model tag and device
-_TABLES: Dict[Tuple[str, str], StreamTable] = {}
+# process-wide tables keyed by model tag, device and mesh shard
+_TABLES: Dict[tuple, StreamTable] = {}
 _TABLES_LOCK = threading.Lock()
 
 
-def get_stream_table(tag: str, cfg: WhisperConfig, dtype, device=None, **kw) -> StreamTable:
-    """Process-wide table per model tag and device; ``kw`` (max_slots,
-    enc_t, ...) applies only at first creation (the first creator sizes the
-    table). A later conflicting request gets the existing table and a logged
-    warning: too little capacity surfaces as ``try_alloc`` failures."""
+def get_stream_table(tag: str, cfg: WhisperConfig, dtype, device=None, mesh=None, **kw) -> StreamTable:
+    """Process-wide table per model tag and device (and, with a ``mesh``,
+    this rank's shard of it: a rank is never handed the unsharded table);
+    ``kw`` (max_slots, enc_t, ...) applies only at first creation (the first
+    creator sizes the table). A later conflicting request gets the existing
+    table and a logged warning: too little capacity surfaces as
+    ``try_alloc`` failures."""
     dev = resolve_device(device)
+    key = (tag, str(dev))
+    if mesh is not None:
+        from ...parallel.mesh import mesh_coords
+
+        key += (mesh_coords(mesh),)
     with _TABLES_LOCK:
-        tbl = _TABLES.get((tag, str(dev)))
+        tbl = _TABLES.get(key)
         if tbl is None:
             tbl = StreamTable(cfg, dtype, device=dev, **kw)
-            _TABLES[(tag, str(dev))] = tbl
+            if mesh is not None:
+                from ...parallel.serving import shard_stream_table
+
+                shard_stream_table(mesh, tbl)
+            _TABLES[key] = tbl
         else:
             got = {"max_slots": tbl.max_slots, "enc_t": tbl.enc_t, "dec_t": tbl.dec_t}
             diff = {k: v for k, v in kw.items() if k in got and v is not None and got[k] != v}

@@ -2,14 +2,23 @@
 """Whisper fine-tune step: teacher-forced cross entropy on the decoder,
 gradients, then an AdamW update.
 
-Port of ``streamkit_tpu/parallel/train.py`` for one device. The reference
-jits one functional ``train_step`` over sharded params; here PyTorch runs
-it eagerly and the optimizer updates the params **in place**, so
+Port of ``streamkit_tpu/parallel/train.py``. The reference jits one
+functional ``train_step`` over sharded params; here PyTorch runs it eagerly
+and the optimizer updates the params **in place**, so
 :class:`TrainState` carries the :class:`~..models.whisper.model.Params`
 module and the ``torch.optim.AdamW`` that owns its moments. ``step``
 counts as the reference's does. On CUDA every attention that the model's
 flash gate sends to K1 is differentiated by K1's backward kernels
 (``ops/attention.py`` :class:`~..ops.attention.FlashAttention`).
+
+On a ``(dp, tp)`` mesh (``make_train_step(cfg, mesh=)``, params from
+:func:`.mesh.shard_params`, each dp rank on its rows of the batch) each
+rank's loss is its rows' ``sum(nll·mask)`` over the batch's global
+``max(sum(mask), 1)``; the gradients are summed over dp. A replicated leaf
+needs no sum over tp: the model's Megatron collectives leave it the same
+gradient on every tp rank. AdamW then runs on each rank's local shards,
+which is exact: it works element by element. The reported loss is the
+global one.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.whisper.config import WhisperConfig
@@ -55,33 +65,63 @@ def init_train_state(params: Params, lr: float = 1e-4) -> TrainState:
     return TrainState(params=params, opt_state=make_optimizer(params, lr), step=0)
 
 
-def loss_fn(params: Params, cfg: WhisperConfig, mel, tokens_in, tokens_out, mask) -> torch.Tensor:
+def _dp_group(mesh):
+    return mesh.get_group("dp") if mesh is not None and mesh.size(0) > 1 else None
+
+
+def loss_fn(params: Params, cfg: WhisperConfig, mel, tokens_in, tokens_out, mask, mesh=None) -> torch.Tensor:
     """Teacher-forced cross entropy over the decoder: log-softmax of the f32
-    logits, the masked mean over ``max(sum(mask), 1)``."""
+    logits, the masked mean over ``max(sum(mask), 1)``. On a ``mesh`` the
+    rows are this dp rank's and the count is the whole batch's (summed over
+    dp, outside the gradient): the ranks' losses add up to the batch's."""
     audio_states = encode(params, cfg, mel)
     logits = decode_logits(params, cfg, tokens_in.long(), audio_states)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, tokens_out.long()[..., None])[..., 0]
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    group = _dp_group(mesh)
+    if group is not None:
+        count = count.detach().clone()
+        dist.all_reduce(count, group=group)
+    return torch.sum(nll * mask) / torch.clamp(count, min=1.0)
 
 
-def make_train_step(cfg: WhisperConfig, lr: float = 1e-4):
+def _sum_grads(params: Params, group) -> None:
+    """Sum every gradient over ``group``, one all-reduce per dtype."""
+    grads = [p.grad for p in params.parameters() if p.grad is not None]
+    for dtype in {g.dtype for g in grads}:
+        same = [g for g in grads if g.dtype == dtype]
+        flat = torch.cat([g.reshape(-1) for g in same])
+        dist.all_reduce(flat, group=group)
+        for g, part in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(part.view_as(g))
+
+
+def make_train_step(cfg: WhisperConfig, lr: float = 1e-4, mesh=None):
     """Returns ``train_step(state, mel, tokens_in, tokens_out, mask) ->
     (state, loss)``: the loss and its gradients, then one AdamW update at
     ``lr`` in place on ``state.params``. The returned state shares the
     params and the optimizer with the one passed in. On CUDA the steps
     repeat bit for bit only under ``torch.backends.cudnn.deterministic``
-    (``utils/checkpoint.py`` says why); the step does not set it."""
+    (``utils/checkpoint.py`` says why); the step does not set it. With a
+    ``mesh``, every rank calls it on its local state and its dp rows (module
+    docstring); the loss returned is the batch's."""
+    group = _dp_group(mesh)
 
     def train_step(state: TrainState, mel, tokens_in, tokens_out, mask):
         opt = state.opt_state
-        for group in opt.param_groups:
-            group["lr"] = lr
+        for g in opt.param_groups:
+            g["lr"] = lr
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(state.params, cfg, mel, tokens_in, tokens_out, mask)
+        loss = loss_fn(state.params, cfg, mel, tokens_in, tokens_out, mask, mesh)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            _sum_grads(state.params, group)
+            loss = loss.clone()
+            dist.all_reduce(loss, group=group)
         opt.step()
-        return TrainState(state.params, opt, state.step + 1), loss.detach()
+        return TrainState(state.params, opt, state.step + 1), loss
 
     return train_step
 

@@ -103,9 +103,14 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.ops.mel
     import streamkit_tpu_torch.ops.resample
     import streamkit_tpu_torch.ops.stream_attention
+    import streamkit_tpu_torch.ops.tensor_parallel
     import streamkit_tpu_torch.ops.vad
     import streamkit_tpu_torch.parallel
     import streamkit_tpu_torch.parallel.train
+    import streamkit_tpu_torch.parallel.dryrun
+    import streamkit_tpu_torch.parallel.launch
+    import streamkit_tpu_torch.parallel.mesh
+    import streamkit_tpu_torch.parallel.serving
     import streamkit_tpu_torch.server
     import streamkit_tpu_torch.server.__main__
     import streamkit_tpu_torch.server.app
@@ -160,7 +165,8 @@ _SCRIPT = textwrap.dedent(
         from streamkit_tpu_torch.models.sensevoice import SenseVoiceConfig, sensevoice_init_params
         from streamkit_tpu_torch.nodes.ml.matcha_node import MatchaTtsNode
         from streamkit_tpu_torch.nodes.ml.sensevoice_node import SenseVoiceNode
-        from streamkit_tpu_torch.parallel import train_state_from_numpy
+        from streamkit_tpu_torch.parallel import make_mesh, run_ranks, train_state_from_numpy
+        from streamkit_tpu_torch.parallel.dryrun import dryrun_multichip
         small = dict(d_model=8, encoder_layers=1, decoder_layers=1, heads=2, ffn_dim=8, max_positions=8)
 
         for name, call in [
@@ -201,6 +207,9 @@ _SCRIPT = textwrap.dedent(
             ("SenseVoiceNode", lambda: SenseVoiceNode(None)),
             ("create_app", lambda: __import__("streamkit_tpu_torch.server", fromlist=["x"]).create_app()),
             ("train_state_from_numpy", lambda: train_state_from_numpy({}, {}, {}, 0, WHISPER_CONFIGS["tiny"])),
+            ("make_mesh", lambda: make_mesh()),
+            ("run_ranks", lambda: run_ranks(print, 1)),
+            ("dryrun_multichip", lambda: dryrun_multichip(2)),
         ]:
             try:
                 call()
@@ -208,6 +217,13 @@ _SCRIPT = textwrap.dedent(
                 assert "no CUDA device" in str(e), (name, e)
             else:
                 raise AssertionError(f"{name} ran without a card and without device=")
+        # with device="cpu" the mesh asks for its process group, not a card
+        try:
+            make_mesh(device="cpu")
+        except RuntimeError as e:
+            assert "process group" in str(e), e
+        else:
+            raise AssertionError("make_mesh ran without a process group")
         print("RAISED")
     print("OK")
     """

@@ -6,12 +6,17 @@ machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import os
+import sys
+
 import pytest
 import torch
 
 from streamkit_tpu_torch.ops import attention as tattn
 from streamkit_tpu_torch.ops import cache_write as tcw
 from streamkit_tpu_torch.ops import stream_attention as tsa
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))  # chip_smoke.py's mesh scenario
 
 
 @pytest.mark.cuda
@@ -994,3 +999,44 @@ def test_train_step_on_cuda_matches_cpu():
         out[dev] = (loss.item(), [p.detach().cpu() for p in state.params.parameters()])
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
     assert max((a - b).abs().max().item() for a, b in zip(out["cuda"][1], out["cpu"][1])) <= 3 * lr
+
+
+def _mesh_small_rank(tp: int) -> dict:
+    import chip_smoke
+
+    from streamkit_tpu_torch.parallel import make_mesh
+
+    return chip_smoke.mesh_small_run(make_mesh(2, tp=tp, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 1], ids=["tp2", "dp2"])
+def test_mesh_ranks_on_one_card_match_one_rank(tp):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device), small f32 config with random biases and layer norms
+    (``chip_smoke.mesh_small_run``, the script's own scenario), at tp = 2
+    and at dp = 2: the sharded forward's logits within 1e-5 of the one-rank
+    run, the fused steps' tokens, counts and positions equal; each rank
+    launches K1 once per encoder layer of each encode, and K2 and K3 twice
+    per fused call (two layers) on its own heads and slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import chip_smoke
+
+    from streamkit_tpu_torch.ops import _build
+    from streamkit_tpu_torch.parallel import run_ranks
+
+    # built once here: two ranks never run nvcc into one build directory
+    _build.build_all([tattn.SOURCE, tcw.SOURCE, tsa.SOURCE])
+    one = chip_smoke.mesh_small_run()
+    ranks = run_ranks(_mesh_small_rank, 2, tp, device="cuda", backend="gloo", timeout_s=300)
+    zero = chip_smoke.ZERO_LAUNCHES
+    for r in ranks:
+        assert r["forward_launches"] == one["forward_launches"] == {**zero, "flash_attention": 2}
+        assert r["fused_launches"] == one["fused_launches"] == {**zero, "windowed_write": 6, "history_attention": 6}
+    for r in ranks:
+        assert np.abs(r["logits"] - one["logits"]).max() <= 1e-5
+        for got, want in zip(r["rows"], one["rows"]):
+            np.testing.assert_array_equal(got, want)
