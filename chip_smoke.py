@@ -51,7 +51,17 @@
    bf16) in stream mode serves 8 sessions of 8 s synthetic speech and 1 s of
    silence pushed faster than real time, then a 2-session engine in exact
    mode. Every session must see speech_start, partials and finals with
-   monotone ``seq``.
+   monotone ``seq``. Both engines take ``resources=`` the manager the
+   ``WhisperNode`` paths filled: one build of large-v3, not two.
+6b. ``# script``: WAV → whisper → ``core::script`` → JSON lines through the
+   oneshot engine, with a JavaScript and a Python ``process(packet)`` that
+   rewrite each transcription and add a field, equal to the same request
+   without the script, transformed in Python.
+6c. ``# host codecs``: which of ``audio::flac::decoder`` (the port's libav
+   shim, built with g++ where pkg-config finds libav), ``audio::mp3::decoder``
+   (libmpg123) and ``containers::webm::muxer`` registered, a line naming each
+   absent library; where FLAC registered, the 10 s segment-final audio as a
+   verbatim FLAC through the decoder → whisper, lines equal to the WAV's.
 7. Profiles a few fused steps at the live-partials path's shape (large-v3,
    8 slots) with ``torch.profiler``: host wall per call against the
    device's kernel time, by kernel.
@@ -124,8 +134,15 @@
    subscriber reads from ``/moq/captions`` (partials and a final; 2 K2 and
    32 K3 per fused call; a device profile of the session names K3; no
    session or stream-table row left after ``destroysession``), the metrics
-   and heap routes, and the f32 node check through a ``cuda`` and a ``cpu``
-   server (equal lines, K1 on the card only).
+   and heap routes, a ``core::script`` ``fetch()`` under the server's
+   ``[script]`` allowlist and scoped secret, ``# loadtest``:
+   ``cli/loadtest.py`` mixed for 30 s (4 oneshot STT workers at a 32-token
+   budget, 2 workers cycling live-captions sessions whose gain is tuned
+   every 200 ms; every request must succeed, K1 and K3 launch), OTLP pushes
+   from a second server (started with ``otlp_endpoint``, on the same model
+   cache) to a collector stub naming its session's events, and the f32 node
+   check through a ``cuda`` and a ``cpu`` server
+   (equal lines, K1 on the card only).
 
 15. Fine-tuning (``# train``, after the context checks): K1's backward
    kernels (``csrc/flash_attention_bwd.cu``: the preprocess, D =
@@ -174,9 +191,9 @@
    64 of each backward kernel on each rank; device time, idle share, peak
    memory per rank). No multi-card time can be taken on one card.
 
-Kernel launch counts are set to 0 just before each path (4, 5, 6, 8, 9,
-11, 12, 13, each request or session of 14, each train step of 15, each
-rank's part of 16) and read just after; each must equal what the code implies (K1: 32 per encode of 256
+Kernel launch counts are set to 0 just before each path (4, 5, 6, 6b, 6c, 8,
+9, 11, 12, 13, each request, session and the load test of 14, each train
+step of 15, each rank's part of 16) and read just after; each must equal what the code implies (K1: 32 per encode of 256
 or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one
 for the encoder caches and their scales and one for the two decoder folds;
 K3: 32 per fused step call; K1's backward kernels: 0 outside 15, one each
@@ -1045,6 +1062,37 @@ def wav_body(audio: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
+def _crc(data: bytes, poly: int, bits: int) -> int:
+    """FLAC's frame CRCs: CRC-8 (poly 0x07) of the header, CRC-16 (0x8005)
+    of the frame, MSB first, initial value 0."""
+    top, mask, crc = 1 << (bits - 1), (1 << bits) - 1, 0
+    for b in data:
+        crc ^= b << (bits - 8)
+        for _ in range(8):
+            crc = ((crc << 1) ^ poly) & mask if crc & top else (crc << 1) & mask
+    return crc
+
+
+def flac_verbatim(pcm16: np.ndarray, rate: int = SR, block: int = 4096) -> bytes:
+    """Mono 16-bit FLAC of ``pcm16`` with verbatim subframes: the minimal
+    encoder of ``tests/test_av_decoder.py``, taking the int16 samples
+    themselves, so the decoder must return the WAV body's samples exactly."""
+    total = len(pcm16)
+    # STREAMINFO: block sizes, frame sizes unknown, rate, mono, 16 bits, total, no MD5
+    info = (block << 128 | block << 112 | rate << 44 | 15 << 36 | total).to_bytes(18, "big") + bytes(16)
+    out = bytearray(b"fLaC" + bytes([0x80]) + len(info).to_bytes(3, "big") + info)
+    s16 = np.asarray(pcm16, dtype=">i2")
+    for idx, start in enumerate(range(0, total, block)):
+        chunk = s16[start : start + block]
+        # sync, fixed block size; block-size code 7 (16-bit size - 1 follows), rate from
+        # STREAMINFO, mono, 16 bits; the frame number UTF-8 coded
+        head = bytes([0xFF, 0xF8, 0x70, 0x08]) + chr(idx).encode("utf-8") + (len(chunk) - 1).to_bytes(2, "big")
+        head += bytes([_crc(head, 0x07, 8)])
+        frame = head + b"\x02" + chunk.tobytes()  # subframe header: verbatim, no wasted bits
+        out += frame + _crc(frame, 0x8005, 16).to_bytes(2, "big")
+    return bytes(out)
+
+
 def stt_doc(whisper_params: dict) -> dict:
     """``http_input → wav demuxer → whisper → json_serialize → http_output``."""
     return {"name": "speech-to-text", "mode": "oneshot", "steps": [
@@ -1399,12 +1447,12 @@ def stream_context_phase():
 # 4. live-partials path: SttServingEngine at large-v3 width
 # ---------------------------------------------------------------------------
 async def run_engine(final_mode: str, n_sessions: int, speech_s: float, seed0: int, mesh=None,
-                     model_size: str = "large-v3", dtype: str = "bfloat16"):
+                     model_size: str = "large-v3", dtype: str = "bfloat16", resources=None):
     from streamkit_tpu_torch.engine import SttServingEngine
     from streamkit_tpu_torch.utils.speechsynth import synth_speech
 
     eng = SttServingEngine(model_size=model_size, dtype=dtype, max_sessions=n_sessions,
-                           final_mode=final_mode, device="cuda", mesh=mesh)
+                           final_mode=final_mode, device="cuda", mesh=mesh, resources=resources)
     t0 = time.monotonic()
     await eng.start()
     t_start = time.monotonic() - t0
@@ -1452,16 +1500,24 @@ def check_events(events, mode):
             raise AssertionError(f"{mode} session {i}: bad event flow {evs}")
 
 
-def live_partials_path(cfg_layers: int = 32):
-    """Path 4; returns the launch counts of its run."""
+def live_partials_path(resources, cfg_layers: int = 32):
+    """Path 4, both engines on ``resources``, which the ``WhisperNode``
+    paths filled: the engines take that model (one build of large-v3, not
+    two). Returns the launch counts of its run."""
     os.environ["SK_STT_TRACE"] = "1"  # per-call wall times of the fused step
+    builds = resources.misses
     reset_counts()  # counts from here to the end of this path
     t0 = time.monotonic()
-    ev_s, out_s = asyncio.run(run_engine("stream", 8, 8.0, seed0=0))
-    ev_x, out_x = asyncio.run(run_engine("exact", 2, 8.0, seed0=100))
+    ev_s, out_s = asyncio.run(run_engine("stream", 8, 8.0, seed0=0, resources=resources))
+    ev_x, out_x = asyncio.run(run_engine("exact", 2, 8.0, seed0=100, resources=resources))
     torch.cuda.synchronize()
     counts = read_counts()
     t_path = time.monotonic() - t0
+    shared = {"builds": resources.misses, "hits": resources.hits, "entries": resources.stats()["entries"],
+              "engine_start_s": [out_s["start_s"], out_x["start_s"]]}
+    log("# shared model " + json.dumps(shared))
+    if builds != 1 or resources.misses != 1:
+        raise AssertionError(f"shared model: {resources.misses} builds of large-v3 (node and engines), expected 1")
     check_events(ev_s, "stream")
     check_events(ev_x, "exact")
     calls = 0
@@ -1919,6 +1975,130 @@ def dynamic_session_path(resources, opus: bool, speed: float = 4.0) -> dict:
                              f"{len(rows)} lines for {len(events)} events")
     if set(states.values()) != {"stopped"}:
         raise AssertionError(f"dynamic session: states after the end {states}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the script node and the host codecs at full width
+# ---------------------------------------------------------------------------
+SCRIPT_JS = """
+function process(packet) {
+  if (packet.type !== 'Transcription') return packet;
+  const text = packet.data.text;
+  return { type: 'Custom', type_id: 'skit/caption@1',
+           data: { text: '[caption] ' + text.toUpperCase(), words: text.split(' ').length } };
+}
+"""
+SCRIPT_PY = """
+def process(p):
+    if p.kind != 'transcription':
+        return p
+    return custom_packet('skit/caption@1', {'text': '[caption] ' + p.text.upper(), 'words': len(p.text.split(' '))})
+"""
+
+
+def caption(text: str) -> dict:
+    """What both scripts make of a transcription, in Python."""
+    return {"text": "[caption] " + text.upper(), "words": len(text.split(" "))}
+
+
+# the whisper step of the script, host-codec and fetch requests: large-v3 bf16
+# at a short token budget (the requests compare lines, not quality)
+SHORT_WHISPER = {"model_size": "large-v3", "dtype": "bfloat16", "language": "en", "max_tokens": 24}
+
+
+def with_script(doc: dict, params: dict) -> dict:
+    """:func:`stt_doc`'s pipeline with a ``core::script`` step after whisper."""
+    steps = list(doc["steps"])
+    steps.insert(3, {"kind": "core::script", "params": params})
+    return dict(doc, steps=steps)
+
+
+def script_path(resources) -> dict:
+    """``# script``: WAV → whisper → ``core::script`` → JSON lines through the
+    oneshot engine, once with a JavaScript ``process(packet)`` and once with
+    the Python dialect, each rewriting every transcription's text and adding
+    a field; both must equal the same request without the script node,
+    transformed in Python. No batcher: the three requests compute alike.
+    Returns the launch counts (K1 32 per encode)."""
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
+    registry = node_registry("cuda")
+    body = wav_body(np.concatenate([synth_speech(6.0, seed=31), np.zeros(SR, np.float32)]))
+    plain = stt_doc(SHORT_WHISPER)
+    docs = {"plain": plain,
+            "javascript": with_script(plain, {"script": SCRIPT_JS, "language": "javascript", "timeout_ms": 10000}),
+            "python": with_script(plain, {"script": SCRIPT_PY, "language": "python", "timeout_ms": 10000})}
+    reset_counts()
+    out, walls = {}, {}
+    for label, doc in docs.items():
+        _, out[label], walls[label] = asyncio.run(oneshot_bytes(registry, compile_pipeline_dict(doc), body, resources))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rows = transcripts(out["plain"])
+    want = [caption(r["text"]) for r in rows]
+    got = {label: [json.loads(line)["Custom"]["data"] for line in out[label].decode().splitlines() if line.strip()]
+           for label in ("javascript", "python")}
+    report = {"lines": len(rows), "walls_s": walls, "launches": counts, "first": want[:1],
+              "equal": {label: got[label] == want for label in got}}
+    log("# script " + json.dumps(report))
+    if not rows or not all(report["equal"].values()):
+        raise AssertionError(f"script: {got} != {want}")
+    if counts["flash_attention"] == 0 or counts["flash_attention"] % flash_per_encode():
+        raise AssertionError(f"script path launched {counts}")
+    return counts
+
+
+def host_codecs_path(resources) -> dict:
+    """``# host codecs``: which of the FLAC, MP3 and WebM kinds registered on
+    this machine (a line names each absent library). Where FLAC registered,
+    the 10 s segment-final WAV is encoded as verbatim FLAC and sent through
+    ``audio::flac::decoder`` → whisper: its lines must equal the WAV
+    request's (the decoder returns the WAV's 16-bit samples exactly). No
+    batcher. Returns the launch counts."""
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+    from streamkit_tpu_torch.nodes.codecs import flac_available, mp3_available
+
+    registry = node_registry("cuda")
+    kinds = {k: registry.contains(k) for k in ("audio::flac::decoder", "audio::mp3::decoder",
+                                               "containers::webm::muxer")}
+    log("# host codecs registered " + json.dumps(kinds))
+    if kinds["audio::flac::decoder"] != flac_available() or kinds["audio::mp3::decoder"] != mp3_available():
+        raise AssertionError(f"host codecs: registry {kinds} against the library checks")
+    if not kinds["containers::webm::muxer"]:
+        raise AssertionError("containers::webm::muxer needs no library and must register")
+    if not kinds["audio::mp3::decoder"]:
+        log("# libmpg123 is absent: audio::mp3::decoder is not registered")
+    reset_counts()
+    report = {"kinds": kinds}
+    if kinds["audio::flac::decoder"]:
+        audio = session_audio(np.random.RandomState(0), 10.0)  # phase 4's first body
+        wav = wav_body(audio)
+        pcm16 = (np.clip(audio, -1, 1) * 32767).astype(np.int16)
+        flac = flac_verbatim(pcm16)
+        doc = stt_doc(SHORT_WHISPER)
+        flac_doc = dict(doc, steps=[doc["steps"][0], {"kind": "audio::flac::decoder"}, *doc["steps"][2:]])
+        rows = {}
+        for label, d, data in (("wav", doc, wav), ("flac", flac_doc, flac)):
+            _, out, wall = asyncio.run(oneshot_bytes(registry, compile_pipeline_dict(d), data, resources))
+            rows[label] = transcripts(out)
+            report[f"{label}_wall_s"] = wall
+        report.update(flac_bytes=len(flac), wav_bytes=len(wav), lines=len(rows["wav"]),
+                      equal=rows["flac"] == rows["wav"])
+        show([r for r in rows["flac"] if r["is_final"]], "flac final")
+        if not rows["wav"] or rows["flac"] != rows["wav"]:
+            raise AssertionError(f"host codecs: FLAC lines {rows['flac']} != WAV lines {rows['wav']}")
+    else:
+        from streamkit_tpu_torch.nodes.codecs import av
+
+        log("# libav (libavformat, libavcodec, libavutil, libswresample, found by pkg-config) is absent: "
+            "audio::flac::decoder is not registered: " + json.dumps(av.unavailable_reason))
+    torch.cuda.synchronize()
+    report["launches"] = counts = read_counts()
+    log("# host codecs " + json.dumps(report))
+    if counts["flash_attention"] % flash_per_encode() or (kinds["audio::flac::decoder"] and not counts["flash_attention"]):
+        raise AssertionError(f"host codecs path launched {counts}")
     return counts
 
 
@@ -2572,7 +2752,7 @@ def server_subprocess_phase() -> dict:
     """(a) ``python3 -m streamkit_tpu_torch.server serve --address 127.0.0.1
     --port 0`` as a child process: its log names the port it bound; it
     answers ``/healthz``, ``/api/v1/config`` and ``/api/v1/schema/nodes``
-    (the kinds of the in-process registry on ``cuda``), then exits 0 on
+    (the kinds the in-process registry on ``cuda`` describes), then exits 0 on
     SIGINT and leaves no compute process on the card."""
     import re
     import signal
@@ -2622,7 +2802,9 @@ def server_subprocess_phase() -> dict:
     apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.split()
     kinds = sorted(n["kind"] for n in got["/api/v1/schema/nodes"][1]["nodes"])
-    want = node_registry("cuda").kinds()
+    # the schema lists the kinds the registry can describe: all but those
+    # that need params to build (core::script), as in the JAX server
+    want = sorted(d.kind for d in node_registry("cuda").definitions())
     report = {"port": port[0], "bound_after_s": t_bound, "exit_code": rc, "kinds": len(kinds),
               "health": got["/healthz"], "config_status": got["/api/v1/config"][0],
               "pid_left_on_card": str(proc.pid) in apps,
@@ -2658,6 +2840,82 @@ def stream_slots_held() -> dict:
     return {f"{tag}@{dev}": t.max_slots - len(t._free) for (tag, dev), t in streaming._TABLES.items()}
 
 
+def recording_app(paths):
+    """A loopback stub on the port's HTTP layer: keeps every request to
+    ``paths`` (method, path, headers, body, host seconds at arrival) and
+    answers it with JSON. An OTLP collector and a ``fetch()`` target."""
+    from streamkit_tpu_torch.server import http
+
+    app = http.Application()
+    app["seen"] = []
+
+    async def handle(request):
+        body = await request.read()
+        app["seen"].append({"method": request.method, "path": request.path, "t": time.monotonic(),
+                            "headers": {k.lower(): v for k, v in request.headers.items()}, "body": body})
+        return http.json_response({"ok": True, "path": request.path})
+
+    for path in paths:
+        for method in ("GET", "POST"):
+            app.router.add_route(method, path, handle)
+    return app
+
+
+SCRIPT_SECRET_ENV = "SKIT_SMOKE_SCRIPT_TOKEN"
+FETCH_SCRIPT = """
+def process(p):
+    if p.kind != 'transcription':
+        return p
+    reply = fetch('STUB/allowed/caption')
+    try:
+        fetch('STUB/denied/caption')
+        refused = ''
+    except Exception as e:
+        refused = str(e)
+    return custom_packet('skit/fetch@1', {'reply': reply, 'refused': refused})
+"""
+
+
+def loadtest_files(directory: str, base: str, stt: dict, body: bytes, live: dict, speech8: str) -> str:
+    """The load test's TOML and the files it names: oneshot ``stt`` (at
+    :data:`LOADTEST_WHISPER`'s budget) on ``body`` at concurrency 4; 2 dynamic sessions of the live-captions graph
+    (WAV in, an ``audio::gain`` before the whisper step, captions to a sink),
+    their gain tuned every 200 ms; 30 s, mixed."""
+    import yaml
+
+    oneshot_yml, media, live_yml = (os.path.join(directory, n) for n in ("lt_stt.yml", "lt_speech.wav", "lt_live.yml"))
+    with open(oneshot_yml, "w") as f:
+        yaml.safe_dump(stt, f)
+    with open(media, "wb") as f:
+        f.write(body)
+    nodes = {"reader": {"kind": "core::file_reader", "params": {"path": speech8}},
+             "demux": {"kind": "containers::wav::demuxer", "needs": "reader"},
+             "pacer": {"kind": "core::pacer", "params": {"speed": 4.0}, "needs": "demux"},
+             "resample": {"kind": "audio::resampler", "params": live["audio::resampler"], "needs": "pacer"},
+             "gain": {"kind": "audio::gain", "params": {"gain": 1.0}, "needs": "resample"},
+             "stt": {"kind": "plugin::native::whisper", "params": live["plugin::native::whisper"], "needs": "gain"},
+             "json": {"kind": "core::json_serialize", "params": live["core::json_serialize"], "needs": "stt"},
+             "sink": {"kind": "core::sink", "needs": "json"}}
+    with open(live_yml, "w") as f:
+        yaml.safe_dump({"name": "loadtest live captions", "mode": "dynamic", "nodes": nodes}, f, sort_keys=False)
+    toml = os.path.join(directory, "loadtest.toml")
+    with open(toml, "w") as f:
+        f.write(f'[server]\nurl = "{base}"\n\n[test]\nduration_secs = {LOADTEST_SECS}\nscenario = "mixed"\n\n'
+                f'[oneshot]\nenabled = true\nconcurrency = 4\npipeline = "{oneshot_yml}"\ninput_file = "{media}"\n\n'
+                f'[dynamic]\nenabled = true\nsession_count = 2\ntune_interval_ms = 200\npipelines = ["{live_yml}"]\n\n'
+                f'[output]\nformat = "text"\nreal_time_updates = true\nupdate_interval_ms = 5000\n')
+    return toml
+
+
+LOADTEST_SECS = 30.0
+LOADTEST_ONESHOT_SECS = 15.0  # the oneshot workers alone, before the mixed run
+# The load test's oneshot whisper step. A 10 s utterance is about 25 words,
+# some 32 tokens; random weights never emit end-of-text, so the budget alone
+# sets each request's decode length (at the default 224 one request outlasts
+# the 30 s run, and each worker finishes a single round).
+LOADTEST_WHISPER = {"model_size": "large-v3", "dtype": "bfloat16", "language": "auto", "max_tokens": 32}
+
+
 def server_phase() -> dict:
     """(b) ``create_app(device="cuda")`` on 127.0.0.1:0 in this script's
     loop; every request through real sockets and the port's client:
@@ -2682,7 +2940,27 @@ def server_phase() -> dict:
        exactly 2 K2 and 32 K3 per fused call, K1 32 per ring decode; a
        device profile taken meanwhile names K3; after ``destroysession`` no
        session and no stream-table row is left;
-    6. ``/api/v1/metrics`` and the heap route (CUDA memory in use).
+    6. ``/api/v1/metrics`` and the heap route (CUDA memory in use);
+    7. ``# script`` fetch: a oneshot request whose ``core::script`` step
+       (Python dialect) calls ``fetch()`` on a loopback stub in the
+       allowlist of the server's ``[script]`` config, with a secret header
+       scoped to it, and on a URL outside it: the header arrives, the other
+       call is refused;
+    8. ``# loadtest``: ``cli/loadtest.py`` ``run_load_test`` (what
+       ``skit-tpu-cli lt`` runs) on one TOML: 4 oneshot workers with step
+       2's pipeline at a 32-token budget on its 10 s body, alone for 15 s
+       (``# loadtest_oneshot_only``), then mixed for 30 s with 2 dynamic
+       workers cycling sessions of the live-captions graph (an
+       ``audio::gain`` before the whisper step, tuned every 200 ms); every
+       request must succeed; K1, K2 and K3 launches and each batched
+       kind's calls and host wall a call are counted over each run;
+    9. OTLP: a second server on the same model cache, started with
+       ``otlp_endpoint`` on a collector stub and a 1 s interval, serves one
+       session of step 3's graph (24 tokens); the stub must get
+       ``/v1/metrics`` and ``/v1/logs`` naming the session's events
+       (``sessioncreated``, the whisper step's ``stt.result`` telemetry);
+       host ms per push. Only this step runs with the pusher and span
+       recording on: both stop with that server.
 
     (c) The node context check through servers: a small f32 Whisper whose
     encoder takes K1, the same request to this server and to one on
@@ -2698,6 +2976,7 @@ def server_phase() -> dict:
     from streamkit_tpu_torch.server import ServerConfig, create_app
     from streamkit_tpu_torch.server.http import AppRunner, ClientSession, FormData, WSMsgType
     from streamkit_tpu_torch.utils.speechsynth import synth_speech
+    from streamkit_tpu_torch.utils.tracing import get_tracer
 
     report = {}
     per = flash_per_encode()
@@ -2720,11 +2999,21 @@ def server_phase() -> dict:
         n_text_ctx=64, n_text_state=128, n_text_head=2, n_text_layer=2)
     check_audio = np.concatenate([np.zeros(SR // 2, np.float32), synth_speech(2.5, seed=21),
                                   np.zeros(SR, np.float32)])
+    script_body = wav_body(np.concatenate([synth_speech(6.0, seed=31), np.zeros(SR, np.float32)]))
     tmp = tempfile.TemporaryDirectory()
     cfg = ServerConfig()
     cfg.assets_dir = os.path.join(tmp.name, "assets")
 
     async def run():
+        collector_app = recording_app(["/v1/metrics", "/v1/logs", "/v1/traces"])
+        collector_runner = AppRunner(collector_app)
+        collector_base = f"http://127.0.0.1:{await collector_runner.start('127.0.0.1', 0)}"
+        fetch_app = recording_app(["/allowed/{tail:.*}", "/denied/{tail:.*}"])
+        fetch_runner = AppRunner(fetch_app)
+        stub_base = f"http://127.0.0.1:{await fetch_runner.start('127.0.0.1', 0)}"
+        cfg.script_fetch_allowlist = [{"url": f"{stub_base}/allowed/*", "methods": ["GET"]}]
+        cfg.script_secrets = {"smoke_token": {"env": SCRIPT_SECRET_ENV, "allowed_fetch_urls": [f"{stub_base}/allowed/*"]}}
+        os.environ[SCRIPT_SECRET_ENV] = "smoke-secret-0"
         app = create_app(cfg, device="cuda")
         state = app["state"]
         runner = AppRunner(app)
@@ -2732,7 +3021,7 @@ def server_phase() -> dict:
         client = ClientSession(timeout=900)
         files = AppRunner(asset_file_app(os.path.join(cfg.assets_dir, "user")))
         files_base = f"http://127.0.0.1:{await files.start('127.0.0.1', 0)}"
-        cpu_runner = None
+        cpu_runner = otlp_runner = None
 
         async def post_process(url, doc, body, config_text=None):
             form = FormData()
@@ -2751,11 +3040,11 @@ def server_phase() -> dict:
                 raise AssertionError(f"server response content type {ctype}")
             return transcripts(out), wall
 
-        async def wait_session(sid, limit_s=600.0):
+        async def wait_session(sid, limit_s=600.0, url=None):
             t0 = time.monotonic()
             while time.monotonic() - t0 < limit_s:
                 await asyncio.sleep(0.25)
-                r = await client.get(f"{base}/api/v1/sessions/{sid}/pipeline")
+                r = await client.get(f"{url or base}/api/v1/sessions/{sid}/pipeline")
                 if node_states_done((await r.json())["pipeline"]):
                     return time.monotonic() - t0
             raise AssertionError(f"server session {sid} did not end")
@@ -2805,13 +3094,16 @@ def server_phase() -> dict:
             r = await client.post(base + "/api/v1/assets", data=form)
             uploaded = (r.status, await r.json())
             out_path = os.path.join(tmp.name, "fetched.jsonl")
-            session_doc = {"mode": "dynamic", "nodes": {
-                "fetch": {"kind": "transport::http::fetcher", "params": {"url": f"{files_base}/assets/speech.wav"}},
-                "demux": {"kind": "containers::wav::demuxer", "needs": "fetch"},
-                "stt": {"kind": "plugin::native::whisper", "needs": "demux",
-                        "params": {"model_size": "large-v3", "dtype": "bfloat16", "language": "en"}},
-                "json": {"kind": "core::json_serialize", "params": {"newline_delimited": True}, "needs": "stt"},
-                "writer": {"kind": "core::file_writer", "params": {"path": out_path}, "needs": "json"}}}
+
+            def fetcher_session(whisper_params, path):
+                return {"mode": "dynamic", "nodes": {
+                    "fetch": {"kind": "transport::http::fetcher", "params": {"url": f"{files_base}/assets/speech.wav"}},
+                    "demux": {"kind": "containers::wav::demuxer", "needs": "fetch"},
+                    "stt": {"kind": "plugin::native::whisper", "needs": "demux", "params": whisper_params},
+                    "json": {"kind": "core::json_serialize", "params": {"newline_delimited": True}, "needs": "stt"},
+                    "writer": {"kind": "core::file_writer", "params": {"path": path}, "needs": "json"}}}
+
+            session_doc = fetcher_session({"model_size": "large-v3", "dtype": "bfloat16", "language": "en"}, out_path)
             before = state.batcher.stats()
             reset_counts()
             r = await client.post(base + "/api/v1/sessions", json={"name": "fetch", "yaml": json.dumps(session_doc)})
@@ -2949,6 +3241,151 @@ def server_phase() -> dict:
             if "skit_batcher_device_calls" not in metrics or not heap.get("memory_allocated"):
                 raise AssertionError(f"server observability: {report['observability']}")
 
+            # 7. core::script fetch() under the server's [script] policy
+            fetch_doc = with_script(stt_doc(SHORT_WHISPER), {
+                "script": FETCH_SCRIPT.replace("STUB", stub_base), "timeout_ms": 10000,
+                "headers": [{"secret": "smoke_token", "header": "Authorization", "template": "Bearer {}"}]})
+            reset_counts()
+            _, out, wall = await post_process(base, fetch_doc, script_body)
+            counts = read_counts()
+            customs = [json.loads(line)["Custom"]["data"] for line in out.decode().splitlines() if line.strip()]
+            seen = fetch_app["seen"]
+            report["script_fetch"] = {
+                "wall_s": wall, "lines": len(customs), "launches": counts,
+                "stub_requests": [(r["method"], r["path"], r["headers"].get("authorization")) for r in seen],
+                "replies": [c["reply"] for c in customs][:2], "refused": [c["refused"] for c in customs][:2]}
+            log("# script fetch " + json.dumps(report["script_fetch"]))
+            if (not customs or counts["flash_attention"] == 0 or len(seen) != len(customs)
+                    or any((r["path"], r["headers"].get("authorization")) != ("/allowed/caption", "Bearer smoke-secret-0")
+                           for r in seen)
+                    or any(json.loads(c["reply"]) != {"ok": True, "path": "/allowed/caption"} for c in customs)
+                    or any("URL not in global allowlist" not in c["refused"] for c in customs)):
+                raise AssertionError(f"script fetch: {report['script_fetch']}")
+
+            # 8. the load test: cli/loadtest.py against this server, first its
+            # oneshot workers alone, then mixed with the live sessions
+            import dataclasses
+
+            from streamkit_tpu_torch.cli.loadtest import LoadTestConfig, run_load_test
+
+            lt_cfg = LoadTestConfig.from_toml(loadtest_files(tmp.name, base, stt_doc(LOADTEST_WHISPER), bodies[0], live,
+                                                              speech8))
+            keep = ("requests", "success_rate", "mean_ms", "p50_ms", "p95_ms", "max_ms", "errors")
+            for label, run_cfg in (
+                    ("loadtest_oneshot_only",
+                     dataclasses.replace(lt_cfg, scenario="oneshot", duration_secs=LOADTEST_ONESHOT_SECS)),
+                    ("loadtest", lt_cfg)):
+                before = state.batcher.stats()
+                reset_counts()
+                t0 = time.monotonic()
+                results = await run_load_test(run_cfg)
+                lt_wall = time.monotonic() - t0
+                t1 = time.monotonic()
+                while (state.sessions.list() or any(stream_slots_held().values())) and time.monotonic() - t1 < 60:
+                    await asyncio.sleep(0.25)
+                torch.cuda.synchronize()
+                counts, stats = read_counts(), state.batcher.stats()
+                calls = kind_calls(stats, "stream_step:") - kind_calls(before, "stream_step:")
+                encodes = sum(kind_calls(stats, p) - kind_calls(before, p) for p in ("whisper_ring:", "whisper_detect:"))
+                # each batched kind's calls over the run and the mean host wall of one
+                kinds = {}
+                for k, v in stats["kinds"].items():
+                    was = before["kinds"].get(k, {})
+                    n = v["calls"] - was.get("calls", 0)
+                    if n:
+                        kinds[k] = {"calls": n, "items": v["items"] - was.get("items", 0),
+                                    "ms_per_call": 1e3 * (v["dispatch_s"] - was.get("dispatch_s", 0)) / n}
+                fused_ms = sum(v["ms_per_call"] * v["calls"] for k, v in kinds.items() if k.startswith("stream_step:"))
+                report[label] = {
+                    "scenario": run_cfg.scenario, "duration_s": run_cfg.duration_secs, "wall_s": lt_wall,
+                    "summary": {k: {f: v[f] for f in keep} for k, v in results.items()},
+                    "oneshot_rounds_per_worker": results.get("oneshot", {}).get("requests", 0)
+                    / run_cfg.oneshot_concurrency,
+                    "tunes_sent": results.get("tune", {}).get("requests", 0), "launches": counts,
+                    "fused_calls": calls, "fused_call_ms_mean": fused_ms / max(calls, 1),
+                    "ring_encodes": encodes, "kinds": kinds,
+                    "sessions_after": len(state.sessions.list()), "stream_rows_held_after": stream_slots_held()}
+                log(f"# {label} " + json.dumps(report[label]))
+                want = {**ZERO_LAUNCHES, "flash_attention": per * encodes, "windowed_write": 2 * calls,
+                        "history_attention": per * calls}
+                expect = ("oneshot", "dynamic", "tune") if run_cfg.scenario == "mixed" else ("oneshot",)
+                failed = [k for k in expect
+                          if k not in results or results[k]["requests"] == 0 or results[k]["success_rate"] < 1.0]
+                if (failed or counts != want or counts["flash_attention"] == 0
+                        or (run_cfg.scenario == "mixed" and counts["history_attention"] == 0)):
+                    errors = {k: results[k]["errors"] for k in failed if k in results}
+                    raise AssertionError(f"{label}: kinds failing {failed} (errors {errors}), launches {counts} "
+                                         f"(expected {want})")
+                if report[label]["sessions_after"] or any(report[label]["stream_rows_held_after"].values()):
+                    raise AssertionError(f"{label} left sessions or stream rows: {report[label]}")
+
+            # 9. OTLP: a second server, started with otlp_endpoint, on the same
+            # model cache; one session of step 3's graph while it pushes
+            otlp_cfg = ServerConfig()
+            otlp_cfg.moq_enabled = False
+            otlp_cfg.assets_dir = cfg.assets_dir
+            otlp_cfg.otlp_endpoint = collector_base
+            otlp_cfg.otlp_interval_secs = 1.0
+            otlp_app = create_app(otlp_cfg, device="cuda")
+            otlp_state = otlp_app["state"]
+            otlp_state.resources = state.resources  # large-v3 as step 1 built it
+            otlp_runner = AppRunner(otlp_app)
+            otlp_base = f"http://127.0.0.1:{await otlp_runner.start('127.0.0.1', 0)}"
+            otlp_out = os.path.join(tmp.name, "otlp.jsonl")
+            reset_counts()
+            r = await client.post(otlp_base + "/api/v1/sessions",
+                                  json={"name": "otlp", "yaml": json.dumps(fetcher_session(SHORT_WHISPER, otlp_out))})
+            created = await r.json()
+            if r.status != 201:
+                raise AssertionError(f"OTLP session: create {r.status} {created}")
+            sid = created["session_id"]
+            wall = await wait_session(sid, url=otlp_base)
+            await (await client.delete(f"{otlp_base}/api/v1/sessions/{sid}")).read()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            encodes = sum(kind_calls(otlp_state.batcher.stats(), p) for p in ("whisper_ring:", "whisper_detect:"))
+
+            def otlp_docs(path):
+                return [json.loads(r["body"]) for r in collector_app["seen"] if r["path"] == path]
+
+            def session_events():
+                names = set()
+                for doc in otlp_docs("/v1/logs"):
+                    for rec in doc["resourceLogs"][0]["scopeLogs"][0]["logRecords"]:
+                        attrs = {a["key"]: a["value"]["stringValue"] for a in rec["attributes"]}
+                        if attrs.get("session_id") != sid:
+                            continue
+                        name = rec["body"]["stringValue"]
+                        if name == "nodetelemetry":
+                            name += ":" + json.loads(attrs.get("data", "{}")).get("event_type", "")
+                        names.add(name)
+                return names
+
+            want_events = {"sessioncreated", "nodetelemetry:stt.result"}
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 30 and not (want_events <= session_events() and otlp_docs("/v1/metrics")):
+                await asyncio.sleep(0.25)
+            otlp = otlp_state.otlp
+            await otlp_runner.cleanup()  # stops the pusher
+            otlp_runner = None
+            get_tracer().disable()  # pusher_from_config turned span recording on
+            with open(otlp_out, "rb") as f:
+                rows = transcripts(f.read())
+            metric_names = {m["name"] for doc in otlp_docs("/v1/metrics")
+                            for m in doc["resourceMetrics"][0]["scopeMetrics"][0]["metrics"]}
+            report["otlp"] = {"posts": {p: len(otlp_docs(p)) for p in ("/v1/metrics", "/v1/logs", "/v1/traces")},
+                              "exports": otlp.exports, "failures": otlp.failures,
+                              "host_ms_per_push": 1e3 * otlp.export_seconds / max(otlp.exports, 1),
+                              "session_wall_s": wall, "lines": len(rows), "encodes": encodes, "launches": counts,
+                              "session_events": sorted(session_events()),
+                              "metrics_named": sorted(metric_names)[:12]}
+            log("# server otlp " + json.dumps(report["otlp"]))
+            if not want_events <= session_events() or "skit_sessions_active" not in metric_names or otlp.failures:
+                raise AssertionError(f"OTLP: the collector stub did not get the session's events: {report['otlp']}")
+            check_transcripts(rows, secs[0], "server OTLP session")
+            if counts != {**ZERO_LAUNCHES, "flash_attention": per * encodes} or encodes == 0:
+                raise AssertionError(f"server OTLP session launched {counts} for {encodes} encodes")
+
             # (c) the f32 context check through two servers. The CPU server
             # starts only now: a server installs the process-wide MoQ relay and
             # gateway, which the live session above must find as its own.
@@ -2980,13 +3417,22 @@ def server_phase() -> dict:
         finally:
             if cpu_runner is not None:
                 await cpu_runner.cleanup()
+            if otlp_runner is not None:
+                await otlp_runner.cleanup()
             await files.cleanup()
             await runner.cleanup()
+            await fetch_runner.cleanup()
+            await collector_runner.cleanup()
 
     try:
         with knobs(SK_STT_GATHER_MS=STT_GATHER_MS, SK_STREAM_SLOTS=4, SK_STREAM_PAD=1):
             asyncio.run(run())
     finally:
+        from streamkit_tpu_torch.nodes.core_nodes.script import set_global_script_config
+
+        get_tracer().disable()  # step 9's OTLP pusher turned span recording on
+        set_global_script_config([], {})
+        os.environ.pop(SCRIPT_SECRET_ENV, None)
         WHISPER_CONFIGS.pop("server-check", None)
         tmp.cleanup()
     return report
@@ -3354,6 +3800,15 @@ def main() -> int:
     t0 = time.monotonic()
     dynamic = dynamic_session_path(resources, opus)
     log(f"# dynamic session path (live_captions.yml graph) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    live = live_partials_path(resources)
+    log(f"# live-partials path (SttServingEngine on the nodes' model) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    script = script_path(resources)
+    log(f"# script path (core::script, JavaScript and Python) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    codecs = host_codecs_path(resources)
+    log(f"# host codecs path (FLAC, MP3, WebM kinds) {time.monotonic() - t0:.1f} s")
     asyncio.run(resources.clear())
     torch.cuda.empty_cache()
     t0 = time.monotonic()
@@ -3365,9 +3820,6 @@ def main() -> int:
     t0 = time.monotonic()
     speech = speech_phase(opus)
     log(f"# speech models phase (Kokoro, Matcha, SenseVoice) {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    live = live_partials_path()
-    log(f"# live-partials path (SttServingEngine) {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     profile_fused_step()
     log(f"# fused-step profile {time.monotonic() - t0:.1f} s")
@@ -3393,6 +3845,11 @@ def main() -> int:
               launches_server_fetcher=server["fetcher"]["launches"]["flash_attention"],
               launches_server_session=server["session"]["launches"]["flash_attention"],
               launches_server_context=server["context_launches"]["cuda"],
+              launches_server_script_fetch=server["script_fetch"]["launches"]["flash_attention"],
+              launches_loadtest=server["loadtest"]["launches"]["flash_attention"],
+              launches_loadtest_oneshot_only=server["loadtest_oneshot_only"]["launches"]["flash_attention"],
+              launches_server_otlp=server["otlp"]["launches"]["flash_attention"],
+              launches_script=script["flash_attention"], launches_host_codecs=codecs["flash_attention"],
               launches_train=train["launches"]["flash_attention"])
     for name, entry in bwd.items():
         entry.update(launches=train["launches"][name],
@@ -3401,12 +3858,14 @@ def main() -> int:
     k2.update(launches=captions["windowed_write"], path="oneshot live captions (WhisperNode)",
               launches_live_partials=live["windowed_write"], launches_dynamic_session=dynamic["windowed_write"],
               launches_speech_models=speech["launches"]["windowed_write"],
-              launches_server_session=server["session"]["launches"]["windowed_write"])
+              launches_server_session=server["session"]["launches"]["windowed_write"],
+              launches_loadtest=server["loadtest"]["launches"]["windowed_write"])
     k3.update(launches=captions["history_attention"], path="oneshot live captions (WhisperNode)",
               launches_live_partials=live["history_attention"],
               launches_dynamic_session=dynamic["history_attention"],
               launches_speech_models=speech["launches"]["history_attention"],
-              launches_server_session=server["session"]["launches"]["history_attention"])
+              launches_server_session=server["session"]["launches"]["history_attention"],
+              launches_loadtest=server["loadtest"]["launches"]["history_attention"])
     for entry in (k1, k2, k3, *bwd.values()):
         entry["launches_mesh"] = mesh["launches_mesh"][entry["name"]]
     log(f"# whole script {time.monotonic() - t_script:.1f} s")

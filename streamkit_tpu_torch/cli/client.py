@@ -36,7 +36,10 @@ class SkitClient:
 
     async def close(self) -> None:
         if self._ws_reader:
+            # the reader must be gone before close() reads the peer's close
+            # frame itself, or close() waits out its timeout
             self._ws_reader.cancel()
+            await asyncio.gather(self._ws_reader, return_exceptions=True)
         if self._ws is not None:
             await self._ws.close()
         if self._session is not None:

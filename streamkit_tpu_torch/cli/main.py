@@ -3,11 +3,11 @@
 
 Parity target: ``apps/skit-cli/src/main.rs:15-320`` commands:
 oneshot, create, destroy, list, tune, pipeline, nodes, permissions,
-samples, watch (WS event stream), config, assets and control, on the port's
-own HTTP / WebSocket client. Not ported yet, each exits with status 2 and a
-line naming its ROADMAP item: ``shell`` and ``loadtest`` (``lt``) and
-``moq`` (item 4: ``cli/shell.py``, ``cli/loadtest.py``, the QUIC client),
-``plugins`` (item 5).
+samples, watch (WS event stream), config, assets, control, shell
+(:mod:`.shell`) and loadtest (``lt``, :mod:`.loadtest`), on the port's own
+HTTP / WebSocket client. Not ported yet, each exits with status 2 and a line
+naming its ROADMAP item: ``moq`` (item 4: the QUIC client) and ``plugins``
+(item 5).
 """
 
 from __future__ import annotations
@@ -20,12 +20,10 @@ from typing import Optional
 
 from ..server.http import ClientError
 from .client import SkitClient
+from .loadtest import LoadTestConfig, run_load_test
 
 # commands whose modules are not ported yet → the ROADMAP item that holds them
 NOT_PORTED = {
-    "shell": "item 4 (cli/shell.py)",
-    "loadtest": "item 4 (cli/loadtest.py)",
-    "lt": "item 4 (cli/loadtest.py)",
     "moq": "item 4 (quic/ and moq/{lite,lite_session,session,wire}.py, which need the cryptography package)",
     "plugins": "item 5 (plugin runtimes)",
 }
@@ -140,6 +138,15 @@ async def _run(args) -> int:
         print(f"error: '{cmd}' is not ported to streamkit_tpu_torch yet: ROADMAP {NOT_PORTED[cmd]}",
               file=sys.stderr)
         return 2
+    if cmd == "shell":
+        from .shell import run_shell
+
+        return await run_shell(args.server)
+    if cmd in ("loadtest", "lt"):
+        cfg = LoadTestConfig.from_toml(args.config)
+        results = await run_load_test(cfg)
+        print(json.dumps(results, indent=2))
+        return 0
 
     async with SkitClient(args.server) as client:
         if cmd == "oneshot":

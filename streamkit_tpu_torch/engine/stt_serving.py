@@ -35,7 +35,11 @@ row runs on the dp rank that owns its slot (every tp rank of that group runs
 it); its outputs come back to rank 0 by an all-gather over dp
 (:mod:`..parallel.serving`).
 
-Not ported yet: the reference's ``resources`` (shared model cache) argument.
+With ``resources=`` the model comes from a shared
+:class:`~..core.resource_manager.ResourceManager` under the key the
+:class:`~..nodes.ml.whisper_node.WhisperNode` uses (path, size, dtype,
+device), so an engine and a node on one manager hold one model per device.
+On a mesh the manager keeps the whole params; each rank shards its copy.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.resource_manager import ResourceKey, ResourceManager
 from ..device import resolve_device
 from ..models.whisper import WHISPER_CONFIGS, WhisperDetokenizer, load_pretrained, seeded_params
 from ..models.whisper.config import language_index
@@ -120,8 +125,9 @@ class SttServingEngine:
         window_buckets: Optional[List[float]] = None,  # exact-final buckets
         max_tokens: int = 32,
         batcher: Optional[DeviceBatcher] = None,
-        ingest_queue_cap: int = 4096,
+        resources: Optional[ResourceManager] = None,
         mesh=None,
+        ingest_queue_cap: int = 4096,
         device=None,
     ) -> None:
         if final_mode not in ("stream", "exact"):
@@ -144,6 +150,7 @@ class SttServingEngine:
         self.batcher = batcher or DeviceBatcher(tick_ms=float(os.environ.get("SK_STT_TICK_MS", "5")),
                                                 device=self.device)
         self._own_batcher = batcher is None
+        self.resources = resources
         # optional (dp, tp) DeviceMesh: weights tensor parallel, stream slots
         # over dp and heads over tp, audio-ring slots over dp
         self.mesh = mesh
@@ -189,8 +196,22 @@ class SttServingEngine:
             params = seeded_params(cfg, self.dtype, dev)
             return cfg, params, WhisperDetokenizer()
 
-        self._cfg, self._params, self._detok = await loop.run_in_executor(None, build)
+        if self.resources is not None:
+            # the WhisperNode's key: one model per device for both
+            key = ResourceKey.from_params(
+                "whisper",
+                {"path": self.model_path, "size": self.model_size, "dtype": str(self.dtype),
+                 "device": str(dev)},
+            )
+
+            async def loader():
+                return await loop.run_in_executor(None, build)
+
+            self._cfg, self._params, self._detok = await self.resources.get_or_create(key, loader)
+        else:
+            self._cfg, self._params, self._detok = await loop.run_in_executor(None, build)
         if self.mesh is not None:
+            # a local copy: the cached params stay whole
             from ..parallel.mesh import shard_params
 
             self._params = shard_params(self.mesh, self._params, self._cfg)

@@ -1,11 +1,12 @@
 # SPDX-License-Identifier: Apache-2.0
 """Built-in node inventory + registration (reference ``nodes/src/lib.rs:25-42``).
 
-The kinds ported so far: the oneshot roles, passthrough and sink, file
-reader and writer, the pacers, the text and telemetry nodes, the WAV and
-Ogg container pairs, the HTTP fetcher and the MoQ peer, subscriber and
-publisher, the audio filters (gain, resampler, mixer), the Opus
-codec pair where libopus loads, and the ML nodes (VAD, Whisper and
+Every kind of the JAX package: the oneshot roles, passthrough and sink, file
+reader and writer, the pacers, the text and telemetry nodes, the script
+node, the WAV and Ogg container pairs and the WebM muxer, the HTTP fetcher
+and the MoQ peer, subscriber and publisher, the audio filters (gain,
+resampler, mixer), the Opus pair, the MP3 and the libav (FLAC) decoders
+where their host libraries load, and the ML nodes (VAD, Whisper and
 SenseVoice STT, NLLB and Marian translation, the Kokoro / VITS / FastSpeech
 TTS node as ``kokoro`` and ``piper``, Matcha TTS). Each kind has the name, description and pins of the JAX
 package's, but for ``transport::moq::publisher``, whose input also takes
@@ -27,9 +28,11 @@ def register_nodes(registry: NodeRegistry, *, device=None) -> None:
     from .audio.filters import GainNode, MixerNode, ResamplerNode
     from .containers.ogg import OggDemuxerNode, OggMuxerNode
     from .containers.wav import WavDemuxerNode, WavMuxerNode
+    from .containers.webm import WebmMuxerNode
     from .core_nodes.basic import BytesInputNode, BytesOutputNode, PassthroughNode, SinkNode
     from .core_nodes.file_io import FileReaderNode, FileWriterNode
     from .core_nodes.pacer import AudioPacerNode, PacerNode
+    from .core_nodes.script import ScriptNode
     from .core_nodes.telemetry_nodes import TelemetryOutNode, TelemetryTapNode
     from .core_nodes.text import JsonSerializeNode, TextChunkerNode
     from .transport.http import HttpFetcherNode
@@ -49,8 +52,10 @@ def register_nodes(registry: NodeRegistry, *, device=None) -> None:
         (WavMuxerNode, "Encodes raw audio frames as a WAV stream"),
         (OggDemuxerNode, "Parses Ogg/Opus into Opus packets"),
         (OggMuxerNode, "Packetizes Opus into an Ogg stream"),
+        (WebmMuxerNode, "Muxes Opus into a WebM (Matroska) stream"),
         (TelemetryTapNode, "Observes packets and emits telemetry events"),
         (TelemetryOutNode, "Forwards packets to the session telemetry bus"),
+        (ScriptNode, "Per-packet sandboxed transform script"),
         (HttpFetcherNode, "Fetches a URL as a binary stream"),
         (MoqPeerNode, "Bidirectional in-server MoQ media endpoint"),
         (MoqSubscriberNode, "Subscribes to a MoQ broadcast"),
@@ -69,7 +74,8 @@ def register_nodes(registry: NodeRegistry, *, device=None) -> None:
     registry.register(BytesInputNode.KIND, _factory(BytesInputNode), "HTTP request body source (oneshot)")
     registry.register(BytesOutputNode.KIND, _factory(BytesOutputNode), "HTTP response body sink (oneshot)")
 
-    # codec nodes register where their host library loads
+    # codec nodes register where their host library loads (never a device
+    # question: the gating is for host libraries only)
     from .codecs import register_codec_nodes
     from .ml import register_ml_nodes
 

@@ -4,8 +4,9 @@
 Every source compiles into its own shared library with a plain C interface,
 named by a hash of the source, every local header it includes (``#include
 "x.cuh"``, recursively) and the flags, under ``_build/`` (git-ignored):
-CUDA kernels with ``nvcc`` for ``sm_90a``, the host-side ingest shim with
-``g++``. A library is built at its first use and loaded with ``ctypes``;
+CUDA kernels with ``nvcc`` for ``sm_90a``, the host-side shims (ingest,
+libav decode) with ``g++``, linked against the system libraries
+``pkg-config`` names. A library is built at its first use and loaded with ``ctypes``;
 importing this module needs neither compiler. A failed build raises: there
 is no fallback. :func:`build_all` starts one compiler per source at once, so
 a cold start pays for the slowest file, not the sum.
@@ -26,7 +27,7 @@ import subprocess
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Tuple
 
 __all__ = ["Source", "build", "build_all", "load", "report", "ptxas_summary", "BUILD_DIR", "NVCC_FLAGS",
            "GXX_FLAGS"]
@@ -58,7 +59,7 @@ def _nvcc() -> str:
 def _gxx() -> str:
     path = shutil.which(os.environ.get("CXX", "g++"))
     if path is None:
-        raise RuntimeError("g++ not found: the ingest shim cannot be built")
+        raise RuntimeError("g++ not found: the host shims cannot be built")
     return path
 
 
@@ -71,6 +72,8 @@ class Source:
 
     file: str
     compiler: str  # "nvcc" | "g++"
+    # system libraries to compile and link against (``pkg-config`` names)
+    pkg_config: Tuple[str, ...] = ()
 
     @property
     def path(self) -> str:
@@ -98,14 +101,28 @@ class Source:
         for path in [self.path, *self.headers()]:
             with open(path, "rb") as f:
                 h.update(os.path.relpath(path, CSRC).encode() + b"\0" + f.read() + b"\0")
-        h.update("\0".join(self._flags()).encode())
+        h.update("\0".join(self._flags() + list(self.pkg_config)).encode())
         stem = os.path.splitext(self.file)[0]
         return os.path.join(BUILD_DIR, f"libsk_{stem}_{h.hexdigest()[:12]}.so")
 
     def command(self, out: str) -> List[str]:
         if self.compiler == "nvcc":
             return [_nvcc(), *self._flags(), "-o", out, self.path]
-        return [_gxx(), *self._flags(), "-o", out, self.path, *GXX_LIBS]
+        return [_gxx(), *self._flags(), "-o", out, self.path, *GXX_LIBS, *_pkg_flags(self.pkg_config)]
+
+
+def _pkg_flags(packages: Tuple[str, ...]) -> List[str]:
+    """``pkg-config --cflags --libs`` of ``packages``; raises when
+    ``pkg-config`` or one of them is missing."""
+    if not packages:
+        return []
+    exe = shutil.which("pkg-config")
+    if exe is None:
+        raise RuntimeError(f"pkg-config not found: cannot link {', '.join(packages)}")
+    proc = subprocess.run([exe, "--cflags", "--libs", *packages], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"pkg-config {' '.join(packages)} failed: {proc.stderr.strip()}")
+    return proc.stdout.split()
 
 
 def _start(src: Source):

@@ -17,11 +17,12 @@ the reference's (``apps/skit/src/server.rs:1859-1971`` route table):
 The device enters only through the nodes: :func:`create_app` takes
 ``device=`` (default ``cuda``; without a card it raises, ``device="cpu"``
 runs on the CPU) and hands it to ``register_nodes`` and to the one
-process-wide :class:`~..engine.batcher.DeviceBatcher`. Not here yet, each
-logged at WARNING when configured: the WebTransport / QUIC acceptor and OTLP
-push (ROADMAP item 4), plugin files (item 5), script secrets and fetch
-allowlist (item 3). MoQ is served over ``/moq/{path}`` only, as the
-reference serves it when its UDP bind fails.
+process-wide :class:`~..engine.batcher.DeviceBatcher`. OTLP push
+(:mod:`.otlp`) starts with the app when ``otlp_endpoint`` is set; the script
+node's fetch allowlist and secrets are installed from the config. Not here
+yet, each logged at WARNING when configured: the WebTransport / QUIC
+acceptor (ROADMAP item 4) and plugin files (item 5). MoQ is served over
+``/moq/{path}`` only, as the reference serves it when its UDP bind fails.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from ..engine.dynamic import DynamicEngineConfig
 from ..engine.oneshot import run_oneshot_pipeline
 from ..nodes import register_nodes
 from ..nodes.core_nodes.file_io import set_security_paths
+from ..nodes.core_nodes.script import ScriptSecret, set_global_script_config
 
 from . import http as web
 from .config import ServerConfig
@@ -105,14 +107,22 @@ class AppState:
             if n
         ]
         self._oneshot_sem = asyncio.Semaphore(min(limits)) if limits else None
-        self.otlp = None
-        if config.otlp_endpoint:
-            log.warning("OTLP push to %s skipped: server/otlp.py is not ported yet (ROADMAP item 4)",
-                        config.otlp_endpoint)
+        # OTLP push telemetry (reference telemetry.rs 5 s periodic reader);
+        # started on app startup when an endpoint is configured
+        from .otlp import pusher_from_config
+
+        self.otlp = pusher_from_config(config, self)
         set_security_paths(config.allowed_file_paths, config.allowed_write_paths)
-        if config.script_secrets or config.script_fetch_allowlist:
-            log.warning("script secrets and fetch allowlist skipped: the script node is not ported yet "
-                        "(ROADMAP item 3)")
+        # script fetch() policy: allowlist from config, secret values from
+        # env vars at startup (reference server.rs:1323-1360)
+        secrets = {}
+        for name, sc in (config.script_secrets or {}).items():
+            value = os.environ.get(sc.get("env", ""))
+            if value is None:
+                log.warning("script secret %r: env var %r unset, skipped", name, sc.get("env"))
+                continue
+            secrets[name] = ScriptSecret(value, list(sc.get("allowed_fetch_urls", [])))
+        set_global_script_config(config.script_fetch_allowlist, secrets)
         from ..core.moq_gateway import init_moq_gateway
         from ..engine.batcher import DeviceBatcher
         from ..moq.relay import init_moq_relay
@@ -130,6 +140,10 @@ class AppState:
 
     def broadcast(self, event: dict) -> None:
         """Fan an event out to every connected control client."""
+        if self.otlp is not None:
+            payload = event.get("payload", event)
+            if isinstance(payload, dict):
+                self.otlp.record_event(payload)
         data = json.dumps(event)
         for ws in list(self._ws_clients):
             if ws.closed:
@@ -603,11 +617,20 @@ def create_app(config: Optional[ServerConfig] = None, *, device=None) -> web.App
     add_observability_routes(app, prefix)
     add_ui_routes(app, prefix)
 
+    async def on_startup(app):
+        state = app["state"]
+        if state.otlp is not None:
+            state.otlp.start()
+            log.info("OTLP push telemetry → %s every %.0fs", state.otlp.endpoint, state.otlp.interval)
+
     async def on_shutdown(app):
         state = app["state"]
+        if state.otlp is not None:
+            await state.otlp.stop()
         await state.sessions.destroy_all()
         state.batcher.stop()
 
+    app.on_startup.append(on_startup)
     app.on_shutdown.append(on_shutdown)
     return app
 

@@ -574,7 +574,7 @@ def test_cli_commands_against_the_port_server(tmp_path):
             rcs.append(await loop.run_in_executor(None, cli, "list", "-s", base))
             rcs.append(await loop.run_in_executor(None, cli, "destroy", "-s", base, sessions[0]["id"]))
             rcs.append(await loop.run_in_executor(None, cli, "nodes", "-s", base))
-            rcs.append(await loop.run_in_executor(None, cli, "shell", "-s", base))
+            rcs.append(await loop.run_in_executor(None, cli, "plugins", "list", "-s", base))
             return rcs, sessions, len(app["state"].sessions.list())
 
     rcs, sessions, left = run(main())

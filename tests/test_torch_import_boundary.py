@@ -18,6 +18,7 @@ _SCRIPT = textwrap.dedent(
     before = set(sys.modules)
     import streamkit_tpu_torch
     import streamkit_tpu_torch.api
+    import streamkit_tpu_torch.api.gen_ts_types
     import streamkit_tpu_torch.api.messages
     import streamkit_tpu_torch.api.yaml_compiler
     import streamkit_tpu_torch.core
@@ -51,7 +52,9 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.engine.stt_serving
     import streamkit_tpu_torch.cli
     import streamkit_tpu_torch.cli.client
+    import streamkit_tpu_torch.cli.loadtest
     import streamkit_tpu_torch.cli.main
+    import streamkit_tpu_torch.cli.shell
     import streamkit_tpu_torch.models
     import streamkit_tpu_torch.models.kokoro
     import streamkit_tpu_torch.models.marian
@@ -73,12 +76,16 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.nodes
     import streamkit_tpu_torch.nodes.audio.filters
     import streamkit_tpu_torch.nodes.codecs
+    import streamkit_tpu_torch.nodes.codecs.av
+    import streamkit_tpu_torch.nodes.codecs.mpeg
     import streamkit_tpu_torch.nodes.codecs.opus
     import streamkit_tpu_torch.nodes.containers.ogg
     import streamkit_tpu_torch.nodes.containers.wav
+    import streamkit_tpu_torch.nodes.containers.webm
     import streamkit_tpu_torch.nodes.core_nodes.basic
     import streamkit_tpu_torch.nodes.core_nodes.file_io
     import streamkit_tpu_torch.nodes.core_nodes.pacer
+    import streamkit_tpu_torch.nodes.core_nodes.script
     import streamkit_tpu_torch.nodes.core_nodes.telemetry_nodes
     import streamkit_tpu_torch.nodes.core_nodes.text
     import streamkit_tpu_torch.nodes.ml
@@ -117,6 +124,7 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.server.config
     import streamkit_tpu_torch.server.http
     import streamkit_tpu_torch.server.observability
+    import streamkit_tpu_torch.server.otlp
     import streamkit_tpu_torch.server.permissions
     import streamkit_tpu_torch.server.profiling
     import streamkit_tpu_torch.server.samples
@@ -124,6 +132,7 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.server.ui
     import streamkit_tpu_torch.server.websocket
     import streamkit_tpu_torch.utils.jax_prng
+    import streamkit_tpu_torch.utils.mjs
     import streamkit_tpu_torch.utils.speechsynth
     import streamkit_tpu_torch.utils.tracing
     import streamkit_tpu_torch.utils.checkpoint
@@ -281,10 +290,15 @@ _BLOCKED = textwrap.dedent(
     from streamkit_tpu_torch.server import ServerConfig, create_app
     from streamkit_tpu_torch.server.http import AppRunner, ClientSession
     import streamkit_tpu_torch.cli.main
+    import streamkit_tpu_torch.cli.loadtest
+    import streamkit_tpu_torch.cli.shell
     import streamkit_tpu_torch.server.__main__
 
     async def main():
         cfg = ServerConfig()
+        cfg.otlp_endpoint = "http://127.0.0.1:1"  # nothing listens: the pusher counts failures
+        cfg.otlp_interval_secs = 0.05
+        cfg.script_fetch_allowlist = [{"url": "http://127.0.0.1:1/*", "methods": ["GET"]}]
         app = create_app(cfg, device="cpu")
         runner = AppRunner(app)
         port = await runner.start("127.0.0.1", 0)
@@ -298,8 +312,13 @@ _BLOCKED = textwrap.dedent(
             await ws.send_json({"type": "request", "correlation_id": "c", "payload": {"action": "listsessions"}})
             listed = (await ws.receive(timeout=10)).json()
             await ws.close()
+            for _ in range(200):
+                if app["state"].otlp.failures >= 1:
+                    break
+                await asyncio.sleep(0.05)
         finally:
             await runner.cleanup()
+        assert app["state"].otlp.failures >= 1 and app["state"].otlp.exports == 0
         assert health == {"status": "ok"}, health
         assert heap["device"] == {"device": "cpu"}, heap
         assert "traceEvents" in trace, list(trace)

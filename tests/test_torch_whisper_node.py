@@ -15,6 +15,7 @@ import importlib
 import io
 import json
 import wave
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -295,59 +296,82 @@ def test_ml_nodes_need_a_device():
 
 
 # -- registry -----------------------------------------------------------------
+# kinds that cannot be built without params: the registry's definitions skip
+# them, so the pin checks build them with these
+PROBE_PARAMS = {"core::script": {"script": "def process(packet):\n    return packet\n"}}
+
+
 def _definitions(reg):
-    return {d.kind: d for d in reg.definitions()}
+    defs = {d.kind: d for d in reg.definitions()}
+    for kind, params in PROBE_PARAMS.items():
+        if reg.contains(kind):
+            node = reg.create_node(kind, params)
+            defs[kind] = SimpleNamespace(
+                input_pins=[p.to_json() for p in node.input_pins()],
+                output_pins=[p.to_json() for p in node.output_pins()],
+                supports_dynamic_pins=node.supports_dynamic_pins(), description=reg._nodes[kind].description)
+    return defs
 
 
 PORT_KINDS = [
     "audio::gain", "audio::mixer", "audio::pacer", "audio::resampler", "containers::ogg::demuxer",
-    "containers::ogg::muxer", "containers::wav::demuxer", "containers::wav::muxer", "core::file_reader",
-    "core::file_writer", "core::json_serialize", "core::pacer", "core::passthrough", "core::sink",
-    "core::telemetry_out", "core::telemetry_tap", "core::text_chunker", "plugin::native::helsinki",
-    "plugin::native::kokoro", "plugin::native::matcha", "plugin::native::nllb", "plugin::native::piper",
-    "plugin::native::sensevoice", "plugin::native::vad", "plugin::native::whisper", "streamkit::http_input",
-    "streamkit::http_output", "transport::http::fetcher", "transport::moq::peer", "transport::moq::publisher",
-    "transport::moq::subscriber",
+    "containers::ogg::muxer", "containers::wav::demuxer", "containers::wav::muxer", "containers::webm::muxer",
+    "core::file_reader", "core::file_writer", "core::json_serialize", "core::pacer", "core::passthrough",
+    "core::script", "core::sink", "core::telemetry_out", "core::telemetry_tap", "core::text_chunker",
+    "plugin::native::helsinki", "plugin::native::kokoro", "plugin::native::matcha", "plugin::native::nllb",
+    "plugin::native::piper", "plugin::native::sensevoice", "plugin::native::vad", "plugin::native::whisper",
+    "streamkit::http_input", "streamkit::http_output", "transport::http::fetcher", "transport::moq::peer",
+    "transport::moq::publisher", "transport::moq::subscriber",
 ]
 OPUS_KINDS = ["audio::opus::decoder", "audio::opus::encoder"]  # where libopus loads
+MP3_KINDS = ["audio::mp3::decoder"]  # where libmpg123 loads
+FLAC_KINDS = ["audio::flac::decoder"]  # where the port's libav shim builds and loads
+GATED_KINDS = OPUS_KINDS + MP3_KINDS + FLAC_KINDS
+
+
+def _gated_kinds():
+    from streamkit_tpu_torch.nodes.codecs import flac_available, mp3_available, opus_available
+
+    return ((OPUS_KINDS if opus_available() else []) + (MP3_KINDS if mp3_available() else [])
+            + (FLAC_KINDS if flac_available() else []))
 
 
 def test_port_registers_exactly_the_ported_kinds(registries):
-    from streamkit_tpu_torch.nodes.codecs import opus_available
-
-    want = sorted(PORT_KINDS + (OPUS_KINDS if opus_available() else []))
+    want = sorted(PORT_KINDS + _gated_kinds())
     assert registries["torch"].kinds() == want
 
 
-# the JAX registry's kinds the port has not ported: host nodes only (the
-# script node, the WebM muxer, the MP3 / FLAC decoders; ROADMAP item 3)
-HOST_KINDS_TO_PORT = [
-    "audio::flac::decoder", "audio::mp3::decoder", "containers::webm::muxer", "core::script",
-]
+# the JAX registry's kinds the port has not ported: none (ROADMAP item 3 done)
+HOST_KINDS_TO_PORT = []
 # the port's publisher also takes Binary (live_captions.yml publishes JSON
 # lines through it; the JAX engine refuses that edge): its one pin difference
 EXTRA_ACCEPTS = {"transport::moq::publisher": ["binary"]}
 
 
 def test_only_host_kinds_are_missing_from_the_port(registries):
-    """Every device model of the JAX registry is registered by the port, and
-    its HTTP and MoQ transport kinds (31 kinds, 33 where libopus loads); the
-    JAX kinds still missing are the 4 host kinds above (those the JAX
-    package registers here: its codec kinds need their libraries, as the
-    port's Opus kinds do)."""
-    from streamkit_tpu_torch.nodes.codecs import opus_available
+    """The port registers every kind of the JAX registry wherever the same
+    host libraries load (33 kinds, up to 37 with libopus, libmpg123 and
+    libav). Opus and MP3 load the same system libraries in both packages;
+    the FLAC decoder is the one kind whose library differs: the JAX package
+    loads a prebuilt ``native/build/libskit_av.so``, the port builds its own
+    ``csrc/av_decode.cpp``, so where only the port's shim exists only the
+    port registers it."""
+    from streamkit_tpu_torch.nodes.codecs import flac_available
 
     jax_kinds, port_kinds = set(registries["jax"].kinds()), set(registries["torch"].kinds())
-    assert len(port_kinds) == (33 if opus_available() else 31)
-    assert port_kinds <= jax_kinds
-    assert jax_kinds - port_kinds == set(HOST_KINDS_TO_PORT) & jax_kinds
+    assert len(port_kinds) == len(PORT_KINDS) + len(_gated_kinds())
+    assert not HOST_KINDS_TO_PORT
+    only_port = set(FLAC_KINDS) - jax_kinds if flac_available() else set()
+    assert port_kinds == jax_kinds | only_port
 
 
-@pytest.mark.parametrize("kind", PORT_KINDS + OPUS_KINDS)
+@pytest.mark.parametrize("kind", PORT_KINDS + GATED_KINDS)
 def test_registered_kind_exists_in_jax_with_equal_pins(registries, kind):
     jd, td = _definitions(registries["jax"]), _definitions(registries["torch"])
-    if kind in OPUS_KINDS and kind not in td:
-        pytest.skip("libopus unavailable: the Opus kinds are not registered")
+    if kind in GATED_KINDS and kind not in td:
+        pytest.skip("its host library does not load: the kind is not registered")
+    if kind in FLAC_KINDS and kind not in jd:
+        pytest.skip("the JAX package's prebuilt libav shim (native/build) is absent")
     assert kind in jd and kind in td
     if kind in EXTRA_ACCEPTS:
         (tp,), (jp,) = td[kind].input_pins, jd[kind].input_pins
