@@ -6,9 +6,9 @@
 0. Builds every native source of the port at once, one compiler each:
    ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
    ``csrc/cache_write.cu`` and ``csrc/stream_attention.cu`` with nvcc for
-   sm_90a, ``csrc/ingest.cpp``
-   with g++, and prints ptxas's report per kernel (registers, shared
-   memory, spills, warnings).
+   sm_90a, ``csrc/ingest.cpp`` and ``csrc/wasm_rt.cpp`` (the WASM plugin
+   runtime) with g++, and prints ptxas's report per kernel (registers,
+   shared memory, spills, warnings).
 1. Holds each hand-written kernel against its plain PyTorch version on the
    card at the shapes the main paths give it, then times kernel, plain
    version and (where one exists) the single PyTorch call that computes the
@@ -62,6 +62,15 @@
    (libmpg123) and ``containers::webm::muxer`` registered, a line naming each
    absent library; where FLAC registered, the 10 s segment-final audio as a
    verbatim FLAC through the decoder → whisper, lines equal to the WAV's.
+6d. ``# plugins``: the example native gain plugin (g++ with
+   ``native/Makefile``'s flags on ``native/plugins/gain/gain_plugin.cpp``),
+   the core-WASM gain and the gain component (the port's SDK) loaded into
+   the port's registry; phase 4's 10 s WAV → gain 2 → whisper (large-v3
+   bf16, 24 tokens) → JSON lines through each runtime and through
+   ``audio::gain``, one request at a time on one ``DeviceBatcher``: the four
+   responses equal, K1 32 per encode in each, K2 and K3 none; each gain node
+   alone over the WAV demuxer's packets (its samples exactly 2x), host ms
+   per packet and per second of audio.
 7. Profiles a few fused steps at the live-partials path's shape (large-v3,
    8 slots) with ``torch.profiler``: host wall per call against the
    device's kernel time, by kernel.
@@ -135,7 +144,11 @@
    32 K3 per fused call; a device profile of the session names K3; no
    session or stream-table row left after ``destroysession``), the metrics
    and heap routes, a ``core::script`` ``fetch()`` under the server's
-   ``[script]`` allowlist and scoped secret, ``# loadtest``:
+   ``[script]`` allowlist and scoped secret, ``# server plugins``: the three
+   plugin files of 6d uploaded, listed, named by the schema, one STT
+   request through the uploaded native gain equal to 6d's lines, all three
+   deleted, then ``skit-tpu-cli plugins list / load / delete`` as child
+   processes (each exits 0), ``# loadtest``:
    ``cli/loadtest.py`` mixed for 30 s (4 oneshot STT workers at a 32-token
    budget, 2 workers cycling live-captions sessions whose gain is tuned
    every 200 ms; every request must succeed, K1 and K3 launch), OTLP pushes
@@ -191,8 +204,8 @@
    64 of each backward kernel on each rank; device time, idle share, peak
    memory per rank). No multi-card time can be taken on one card.
 
-Kernel launch counts are set to 0 just before each path (4, 5, 6, 6b, 6c, 8,
-9, 11, 12, 13, each request, session and the load test of 14, each train
+Kernel launch counts are set to 0 just before each path (4, 5, 6, 6b, 6c, each
+request of 6d, 8, 9, 11, 12, 13, each request, session and the load test of 14, each train
 step of 15, each rank's part of 16) and read just after; each must equal what the code implies (K1: 32 per encode of 256
 or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one
 for the encoder caches and their scales and one for the two decoder folds;
@@ -263,8 +276,10 @@ def build_phase() -> None:
     """Start one compiler per native source, all at once; raise on failure."""
     from streamkit_tpu_torch.engine import ingest
     from streamkit_tpu_torch.ops import _build, attention, cache_write, stream_attention
+    from streamkit_tpu_torch.plugins import wasm
 
-    sources = [attention.SOURCE, attention.BWD_SOURCE, cache_write.SOURCE, stream_attention.SOURCE, ingest.SOURCE]
+    sources = [attention.SOURCE, attention.BWD_SOURCE, cache_write.SOURCE, stream_attention.SOURCE, ingest.SOURCE,
+               wasm.SOURCE]
     t0 = time.monotonic()
     _build.build_all(sources)
     for src in sources:
@@ -2103,6 +2118,167 @@ def host_codecs_path(resources) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the plugin hosts in front of Whisper
+# ---------------------------------------------------------------------------
+# exact in f32; the component fixture's guest reads its gain from one ASCII
+# digit of the params, so the four runtimes share an integer gain
+PLUGIN_GAIN = 2
+PLUGINS = {}  # the plugin files, request and lines of plugins_path, for the server phase
+
+
+def build_plugin_files(directory: str) -> dict:
+    """The three plugin files, built from the checkout into ``directory``: the
+    example native plugin (``native/plugins/gain/gain_plugin.cpp``) with g++
+    and ``native/Makefile``'s flags, the core-WASM gain and the gain component
+    with the port's SDK → {runtime: path}. A failed build raises."""
+    from streamkit_tpu_torch.plugins.component_asm import build_gain_component
+    from streamkit_tpu_torch.plugins.wasm_asm import build_gain_wasm
+
+    files = {"native": os.path.join(directory, "gain_cpp.so"), "wasm": os.path.join(directory, "wgain.wasm"),
+             "component": os.path.join(directory, "gain-component.wasm")}
+    t0 = time.monotonic()
+    proc = subprocess.run(["g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-Wall", "-Wextra", "-o", files["native"],
+                           os.path.join(REPO_DIR, "native", "plugins", "gain", "gain_plugin.cpp")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on the native gain plugin ({proc.returncode}):\n{proc.stderr}")
+    log(f"# built {files['native']} (g++) in {time.monotonic() - t0:.1f} s")
+    for runtime, data in (("wasm", build_gain_wasm()), ("component", build_gain_component())):
+        with open(files[runtime], "wb") as f:
+            f.write(data)
+    return files
+
+
+def plugin_doc(kind: str, params: dict) -> dict:
+    """:func:`stt_doc` at :data:`SHORT_WHISPER` with a gain step after the WAV demuxer."""
+    doc = stt_doc(SHORT_WHISPER)
+    steps = list(doc["steps"])
+    steps.insert(2, {"kind": kind, "params": params})
+    return dict(doc, steps=steps)
+
+
+async def run_node(registry, kind: str, params, packets: list):
+    """One node of ``kind`` alone over ``packets`` → (wall seconds, outputs)."""
+    from streamkit_tpu_torch.core import Channel, NodeContext, OutputSender
+
+    node = registry.create_node(kind, params)
+    inp, out = Channel(len(packets) + 1), Channel(1 << 16)  # room for every output: drained after the run
+    ctx = NodeContext(node_name="timed", inputs={"in": inp}, output=OutputSender("timed", direct={"out": out}))
+    for pkt in packets:
+        await inp.send(pkt)
+    inp.close()
+    t0 = time.perf_counter()
+    await node.run(ctx)
+    wall = time.perf_counter() - t0
+    outs = []
+    while not out.is_empty:
+        outs.append(await out.recv_optional())
+    return wall, outs
+
+
+def plugins_path(resources) -> dict:
+    """``# plugins``: the three plugin runtimes in front of Whisper large-v3.
+
+    Builds the three plugin files (:func:`build_plugin_files`), loads them
+    into the port's registry (``plugin::native::gain_cpp``,
+    ``plugin::wasm::wgain`` on the core-WASM host, ``plugin::wasm::gain`` on
+    the component host) and sends phase 4's 10 s WAV through WAV demuxer →
+    gain :data:`PLUGIN_GAIN` → whisper (:data:`SHORT_WHISPER`) → JSON lines,
+    once per runtime and once through ``audio::gain``, one request at a time
+    through one ``DeviceBatcher``: the four responses must be equal, each
+    request must launch K1 32 per encode and no K2 or K3. Then each gain node
+    alone over the demuxer's packets of the same WAV: host time per packet
+    and per second of audio. Returns the launch counts of the four requests."""
+    import tempfile
+
+    from streamkit_tpu_torch.api import compile_pipeline_dict
+    from streamkit_tpu_torch.core import Packet
+    from streamkit_tpu_torch.engine import DeviceBatcher
+    from streamkit_tpu_torch.plugins.native import load_native_plugin
+    from streamkit_tpu_torch.plugins.wasm import SOURCE, load_wasm_plugin
+
+    tmp = tempfile.TemporaryDirectory(prefix="skit-plugins-")
+    files = build_plugin_files(tmp.name)
+    registry = node_registry("cuda")
+    kinds = {"native": load_native_plugin(registry, files["native"]).kind,
+             "wasm": load_wasm_plugin(registry, files["wasm"]).kind,
+             "component": load_wasm_plugin(registry, files["component"]).kind}
+    log("# plugins loaded " + json.dumps({"kinds": kinds, "wasm_runtime": os.path.relpath(SOURCE.library())}))
+    if kinds != {"native": "plugin::native::gain_cpp", "wasm": "plugin::wasm::wgain", "component": "plugin::wasm::gain"}:
+        raise AssertionError(f"plugins registered as {kinds}")
+    steps = {"native": (kinds["native"], {"gain": float(PLUGIN_GAIN)}),
+             "wasm": (kinds["wasm"], {"gain": float(PLUGIN_GAIN)}),
+             "component": (kinds["component"], {"gain": PLUGIN_GAIN}),
+             "audio::gain": ("audio::gain", {"gain": float(PLUGIN_GAIN)})}
+    audio = session_audio(np.random.RandomState(0), 10.0)  # phase 4's first body
+    body = wav_body(audio)
+    per = flash_per_encode()
+
+    async def requests():
+        batcher = DeviceBatcher(device="cuda")
+        out = {}
+        try:
+            for label, step in steps.items():
+                before = batcher.stats()
+                reset_counts()
+                ctype, data, wall = await oneshot_bytes(registry, compile_pipeline_dict(plugin_doc(*step)), body,
+                                                        resources, batcher)
+                torch.cuda.synchronize()
+                counts, stats = read_counts(), batcher.stats()
+                encodes = sum(kind_calls(stats, p) - kind_calls(before, p) for p in ("whisper_ring:", "whisper_detect:"))
+                out[label] = {"wall_s": wall, "content_type": ctype, "body": data, "encodes": encodes,
+                              "launches": counts}
+        finally:
+            batcher.stop()
+        return out
+
+    async def host_times():
+        demux = [Packet.new_binary(body[i : i + (1 << 16)]) for i in range(0, len(body), 1 << 16)]
+        _, frames = await run_node(registry, "containers::wav::demuxer", None, demux)
+        times = {}
+        for label, (kind, params) in steps.items():
+            walls = []
+            for _ in range(4):  # the first run warms the node's host path
+                wall, outs = await run_node(registry, kind, params, frames)
+                walls.append(wall)
+            got = np.concatenate([o.audio.samples for o in outs])
+            want = np.concatenate([f.audio.samples for f in frames]) * np.float32(PLUGIN_GAIN)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{label}: the gain node's samples differ from x * {PLUGIN_GAIN}")
+            best = min(walls[1:])
+            times[label] = {"packets": len(frames), "ms_per_packet": best * 1e3 / len(frames),
+                            "ms_per_audio_s": best * 1e3 / (len(audio) / SR),
+                            "runs_ms": [w * 1e3 for w in walls]}
+        return times
+
+    try:
+        with knobs(SK_STT_GATHER_MS=STT_GATHER_MS):
+            out = asyncio.run(requests())
+        times = asyncio.run(host_times())
+    finally:
+        PLUGINS.update(files=files, tmp=tmp, body=body, steps=steps)
+    rows = {label: transcripts(o["body"]) for label, o in out.items()}
+    report = {label: {k: v for k, v in o.items() if k != "body"} for label, o in out.items()}
+    for label, r in report.items():
+        r.update(lines=len(rows[label]), equal_to_audio_gain=out[label]["body"] == out["audio::gain"]["body"],
+                 host=times[label])
+        log(f"# plugins {label} " + json.dumps(r))
+    show([r for r in rows["native"] if r["is_final"]], "plugins final")
+    check_transcripts(rows["audio::gain"], 10.0, "plugins audio::gain")
+    total = dict(ZERO_LAUNCHES)
+    for label, o in out.items():
+        want = {**ZERO_LAUNCHES, "flash_attention": per * o["encodes"]}
+        if o["launches"] != want or o["encodes"] != out["audio::gain"]["encodes"] or o["encodes"] == 0:
+            raise AssertionError(f"plugins {label}: launched {o['launches']} for {o['encodes']} encodes, "
+                                 f"expected {want} and audio::gain's {out['audio::gain']['encodes']} encodes")
+        if o["body"] != out["audio::gain"]["body"]:
+            raise AssertionError(f"plugins {label}: lines {rows[label]} != audio::gain's {rows['audio::gain']}")
+        total = {k: total[k] + o["launches"][k] for k in total}
+    PLUGINS["lines"] = rows["audio::gain"]
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 8. translation at full width: NLLB-200-distilled-600M and opus-mt-en-es
 # ---------------------------------------------------------------------------
 def translate_texts(n: int = 16) -> list:
@@ -2916,6 +3092,74 @@ LOADTEST_ONESHOT_SECS = 15.0  # the oneshot workers alone, before the mixed run
 LOADTEST_WHISPER = {"model_size": "large-v3", "dtype": "bfloat16", "language": "auto", "max_tokens": 32}
 
 
+async def server_plugins_step(client, base: str, state, post_process) -> dict:
+    """Step 7b of the server phase, on the files :func:`plugins_path` built:
+    ``POST /api/v1/plugins`` with each of the three, ``GET`` lists them with
+    their ABI version and runtime, ``/api/v1/schema/nodes`` names their
+    kinds, one multipart ``POST /api/v1/process`` through the uploaded native
+    gain gives the lines of the ``# plugins`` requests (K1 32 per encode, no
+    K2 or K3), each is deleted (native: ``deleted``, WASM: ``removed``); then
+    ``skit-tpu-cli plugins list``, ``load`` and ``delete`` as child processes
+    against this server, each exiting 0."""
+    from streamkit_tpu_torch.server.http import FormData
+
+    files, per = PLUGINS["files"], flash_per_encode()
+    want_kinds = {"native": "plugin::native::gain_cpp", "wasm": "plugin::wasm::wgain", "component": "plugin::wasm::gain"}
+    uploads = {}
+    for runtime, path in files.items():
+        form = FormData()
+        with open(path, "rb") as f:
+            form.add_field("file", f.read(), filename=os.path.basename(path))
+        r = await client.post(base + "/api/v1/plugins", data=form)
+        uploads[runtime] = (r.status, await r.json())
+    listed = (await (await client.get(base + "/api/v1/plugins")).json())["plugins"]
+    schema = {n["kind"] for n in (await (await client.get(base + "/api/v1/schema/nodes")).json())["nodes"]}
+    before = state.batcher.stats()
+    reset_counts()
+    _, out, wall = await post_process(base, plugin_doc(*PLUGINS["steps"]["native"]), PLUGINS["body"])
+    torch.cuda.synchronize()
+    counts, stats = read_counts(), state.batcher.stats()
+    encodes = sum(kind_calls(stats, p) - kind_calls(before, p) for p in ("whisper_ring:", "whisper_detect:"))
+    rows = transcripts(out)
+    deletes = {}
+    for runtime, kind in want_kinds.items():
+        r = await client.delete(f"{base}/api/v1/plugins/{kind}")
+        deletes[runtime] = (r.status, await r.json())
+    left = (await (await client.get(base + "/api/v1/plugins")).json())["plugins"]
+    env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = []
+    for args in (["list"], ["load", files["native"]], ["delete", want_kinds["native"]]):
+        t0 = time.monotonic()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "streamkit_tpu_torch.cli", "plugins", *args, "-s", base, cwd=REPO_DIR, env=env,
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+        stdout, stderr = await asyncio.wait_for(proc.communicate(), 300)
+        cli.append({"args": args, "rc": proc.returncode, "wall_s": time.monotonic() - t0,
+                    "stdout": stdout.decode()[-300:], "stderr": stderr.decode()[-300:]})
+    report = {"uploads": uploads, "listed": [(p["kind"], p["runtime"], p["abi_version"]) for p in listed],
+              "wall_s": wall, "lines": len(rows), "equal_to_plugins_path": rows == PLUGINS["lines"],
+              "encodes": encodes, "launches": counts, "deletes": deletes, "left": left,
+              "cli": [{k: c[k] for k in ("args", "rc", "wall_s")} for c in cli],
+              "left_after_cli": (await (await client.get(base + "/api/v1/plugins")).json())["plugins"]}
+    log("# server plugins " + json.dumps(report))
+    want_listed = [("plugin::native::gain_cpp", "native", 2), ("plugin::wasm::wgain", "wasm", 1),
+                   ("plugin::wasm::gain", "wasm", 1)]
+    if (any(uploads[r] != (201, {"kind": k, "description": uploads[r][1].get("description")})
+            for r, k in want_kinds.items())
+            or report["listed"] != want_listed or not set(want_kinds.values()) <= schema
+            or deletes != {"native": (200, {"deleted": want_kinds["native"]}),
+                           "wasm": (200, {"removed": want_kinds["wasm"]}),
+                           "component": (200, {"removed": want_kinds["component"]})} or left):
+        raise AssertionError(f"server plugins: {report}")
+    if rows != PLUGINS["lines"]:
+        raise AssertionError(f"server plugins: lines {rows} != the # plugins requests' {PLUGINS['lines']}")
+    if counts != {**ZERO_LAUNCHES, "flash_attention": per * encodes} or encodes == 0:
+        raise AssertionError(f"server plugins request launched {counts} for {encodes} encodes")
+    if any(c["rc"] != 0 for c in cli) or "gain_cpp" not in cli[1]["stdout"] or report["left_after_cli"]:
+        raise AssertionError(f"skit-tpu-cli plugins: {cli}")
+    return report
+
+
 def server_phase() -> dict:
     """(b) ``create_app(device="cuda")`` on 127.0.0.1:0 in this script's
     loop; every request through real sockets and the port's client:
@@ -2946,6 +3190,7 @@ def server_phase() -> dict:
        allowlist of the server's ``[script]`` config, with a secret header
        scoped to it, and on a URL outside it: the header arrives, the other
        call is refused;
+    7b. ``# server plugins``: :func:`server_plugins_step`;
     8. ``# loadtest``: ``cli/loadtest.py`` ``run_load_test`` (what
        ``skit-tpu-cli lt`` runs) on one TOML: 4 oneshot workers with step
        2's pipeline at a 32-token budget on its 10 s body, alone for 15 s
@@ -3003,6 +3248,7 @@ def server_phase() -> dict:
     tmp = tempfile.TemporaryDirectory()
     cfg = ServerConfig()
     cfg.assets_dir = os.path.join(tmp.name, "assets")
+    cfg.plugins_dir = os.path.join(tmp.name, "plugins")
 
     async def run():
         collector_app = recording_app(["/v1/metrics", "/v1/logs", "/v1/traces"])
@@ -3261,6 +3507,9 @@ def server_phase() -> dict:
                     or any(json.loads(c["reply"]) != {"ok": True, "path": "/allowed/caption"} for c in customs)
                     or any("URL not in global allowlist" not in c["refused"] for c in customs)):
                 raise AssertionError(f"script fetch: {report['script_fetch']}")
+
+            # 7b. the plugin routes: the three files of plugins_path uploaded, used, deleted
+            report["plugins"] = await server_plugins_step(client, base, state, post_process)
 
             # 8. the load test: cli/loadtest.py against this server, first its
             # oneshot workers alone, then mixed with the live sessions
@@ -3809,6 +4058,9 @@ def main() -> int:
     t0 = time.monotonic()
     codecs = host_codecs_path(resources)
     log(f"# host codecs path (FLAC, MP3, WebM kinds) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    plugins = plugins_path(resources)
+    log(f"# plugins path (native, core WASM, component, audio::gain) {time.monotonic() - t0:.1f} s")
     asyncio.run(resources.clear())
     torch.cuda.empty_cache()
     t0 = time.monotonic()
@@ -3828,7 +4080,10 @@ def main() -> int:
     log(f"# dsp phase {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     server_subprocess_phase()
-    server = server_phase()
+    try:
+        server = server_phase()
+    finally:
+        PLUGINS["tmp"].cleanup()
     log(f"# server phase {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     mesh = mesh_phase()
@@ -3850,6 +4105,8 @@ def main() -> int:
               launches_loadtest_oneshot_only=server["loadtest_oneshot_only"]["launches"]["flash_attention"],
               launches_server_otlp=server["otlp"]["launches"]["flash_attention"],
               launches_script=script["flash_attention"], launches_host_codecs=codecs["flash_attention"],
+              launches_plugins=plugins["flash_attention"],
+              launches_server_plugins=server["plugins"]["launches"]["flash_attention"],
               launches_train=train["launches"]["flash_attention"])
     for name, entry in bwd.items():
         entry.update(launches=train["launches"][name],

@@ -95,6 +95,27 @@ class SkitClient:
         async with self._session.get(f"{self.base_url}/api/v1/config") as r:
             return await r.json()
 
+    async def list_plugins(self) -> dict:
+        async with self._session.get(f"{self.base_url}/api/v1/plugins") as r:
+            return await r.json()
+
+    async def upload_plugin(self, path: str) -> dict:
+        """Upload a ``.so`` or ``.wasm`` as the multipart ``file`` part the
+        server reads; raises on a status of 400 or above."""
+        form = FormData()
+        with open(path, "rb") as f:
+            form.add_field("file", f.read(), filename=path.rsplit("/", 1)[-1])
+        async with self._session.post(f"{self.base_url}/api/v1/plugins", data=form) as r:
+            doc = await r.json()
+            if r.status >= 400:
+                raise RuntimeError(doc.get("error", f"HTTP {r.status}"))
+            return doc
+
+    async def delete_plugin(self, kind: str) -> None:
+        async with self._session.delete(f"{self.base_url}/api/v1/plugins/{kind}") as r:
+            if r.status >= 400:
+                raise RuntimeError(f"HTTP {r.status}")
+
     async def list_assets(self) -> dict:
         async with self._session.get(f"{self.base_url}/api/v1/assets") as r:
             return await r.json()

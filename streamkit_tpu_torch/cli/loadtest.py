@@ -8,8 +8,10 @@ metrics.rs:34-127): TOML scenarios (oneshot / dynamic / mixed), concurrent
 workers, success rate + mean/min/max + reservoir-sampled percentiles,
 realtime progress output. The summary also carries p95 and
 the first few distinct errors (the reference drops them). The
-``[populate]`` plugin lists are parsed and reported as not loaded: the plugin
-runtimes are not ported yet (ROADMAP item 5).
+``[populate]`` plugins are uploaded before the run as the CLI's ``plugins
+load`` uploads them (a multipart ``file`` part), and a refused upload ends
+the run: the JAX package posts the raw bytes, which the upload route
+refuses, and goes on without them (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -248,12 +250,20 @@ async def _broadcaster_worker(cfg: LoadTestConfig, metrics: Metrics, stop: async
                 pass
 
 
-def _populate(cfg: LoadTestConfig) -> None:
-    """The reference preloads plugins here (workers.rs populate phase); the
-    port has no plugin runtime yet, so each listed plugin is named as not
-    loaded."""
-    for path in cfg.populate_plugins_native + cfg.populate_plugins_wasm:
-        print(f"populate: {path} not loaded: plugin runtimes are not ported yet (ROADMAP item 5)", flush=True)
+async def _populate(cfg: LoadTestConfig) -> None:
+    """Upload the ``[populate]`` plugins before the run (reference
+    workers.rs populate phase); raises on the first upload the server
+    refuses."""
+    paths = cfg.populate_plugins_native + cfg.populate_plugins_wasm
+    if not paths:
+        return
+    async with SkitClient(cfg.server) as client:
+        for path in paths:
+            try:
+                doc = await client.upload_plugin(path)
+            except (OSError, RuntimeError) as e:
+                raise RuntimeError(f"populate: {path} was not loaded: {e}") from e
+            print(f"populate: loaded {doc['kind']} from {path}", flush=True)
 
 
 async def run_load_test(cfg: LoadTestConfig, realtime: Optional[bool] = None) -> Dict[str, dict]:
@@ -263,7 +273,7 @@ async def run_load_test(cfg: LoadTestConfig, realtime: Optional[bool] = None) ->
     ``tune``, ``broadcaster``)."""
     if realtime is None:
         realtime = cfg.real_time_updates
-    _populate(cfg)
+    await _populate(cfg)
     stop = asyncio.Event()
     metrics: Dict[str, Metrics] = {}
     workers: List[asyncio.Task] = []

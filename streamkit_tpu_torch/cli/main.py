@@ -3,11 +3,11 @@
 
 Parity target: ``apps/skit-cli/src/main.rs:15-320`` commands:
 oneshot, create, destroy, list, tune, pipeline, nodes, permissions,
-samples, watch (WS event stream), config, assets, control, shell
-(:mod:`.shell`) and loadtest (``lt``, :mod:`.loadtest`), on the port's own
-HTTP / WebSocket client. Not ported yet, each exits with status 2 and a line
-naming its ROADMAP item: ``moq`` (item 4: the QUIC client) and ``plugins``
-(item 5).
+samples, watch (WS event stream), config, plugins (list / load / delete),
+assets, control, shell (:mod:`.shell`) and loadtest (``lt``,
+:mod:`.loadtest`), on the port's own HTTP / WebSocket client. Not ported
+yet: ``moq`` (ROADMAP item 4: the QUIC client) exits with status 2 and a
+line naming its item.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from .loadtest import LoadTestConfig, run_load_test
 # commands whose modules are not ported yet → the ROADMAP item that holds them
 NOT_PORTED = {
     "moq": "item 4 (quic/ and moq/{lite,lite_session,session,wire}.py, which need the cryptography package)",
-    "plugins": "item 5 (plugin runtimes)",
 }
 
 
@@ -195,6 +194,14 @@ async def _run(args) -> int:
                 print(json.dumps(_config_schema(), indent=2))
             else:
                 print(json.dumps(await client.get_config(), indent=2))
+        elif cmd == "plugins":
+            if args.action == "list":
+                print(json.dumps(await client.list_plugins(), indent=2))
+            elif args.action == "load":
+                print(json.dumps(await client.upload_plugin(args.target), indent=2))
+            else:
+                await client.delete_plugin(args.target)
+                print("deleted", args.target)
         elif cmd == "assets":
             if args.action == "list":
                 print(json.dumps(await client.list_assets(), indent=2))

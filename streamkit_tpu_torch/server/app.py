@@ -12,6 +12,9 @@ the reference's (``apps/skit/src/server.rs:1859-1971`` route table):
 * ``POST /api/v1/sessions`` (YAML create) / ``GET /api/v1/sessions`` /
   ``DELETE /api/v1/sessions/{id}`` / ``GET /api/v1/sessions/{id}/pipeline``
 * ``GET /moq/{path}`` — MoQ media over WebSocket
+* ``GET/POST /api/v1/plugins``, ``DELETE /api/v1/plugins/{kind}`` — native
+  and WASM plugins (:mod:`.plugins_api`); ``plugins_dir/{wasm,native}`` is
+  loaded at start
 * samples + assets, observability and UI routes
 
 The device enters only through the nodes: :func:`create_app` takes
@@ -20,9 +23,9 @@ runs on the CPU) and hands it to ``register_nodes`` and to the one
 process-wide :class:`~..engine.batcher.DeviceBatcher`. OTLP push
 (:mod:`.otlp`) starts with the app when ``otlp_endpoint`` is set; the script
 node's fetch allowlist and secrets are installed from the config. Not here
-yet, each logged at WARNING when configured: the WebTransport / QUIC
-acceptor (ROADMAP item 4) and plugin files (item 5). MoQ is served over
-``/moq/{path}`` only, as the reference serves it when its UDP bind fails.
+yet, logged at WARNING when configured: the WebTransport / QUIC acceptor
+(ROADMAP item 4). MoQ is served over ``/moq/{path}`` only, as the reference
+serves it when its UDP bind fails.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from ..engine.oneshot import run_oneshot_pipeline
 from ..nodes import register_nodes
 from ..nodes.core_nodes.file_io import set_security_paths
 from ..nodes.core_nodes.script import ScriptSecret, set_global_script_config
+from ..plugins.native import load_plugins_dir
+from ..plugins.wasm import load_wasm_plugin
 
 from . import http as web
 from .config import ServerConfig
@@ -67,17 +72,18 @@ class SessionLimitReached(Exception):
     the WS control plane to an Error response payload."""
 
 
-def _skip_plugin_files(plugins_dir: str) -> None:
-    """Plugin runtimes are not ported yet (ROADMAP item 5): every plugin file
-    the reference would load is named in one WARNING line and skipped."""
-    for sub, ext in (("wasm", ".wasm"), ("native", ".so")):
-        d = os.path.join(plugins_dir, sub)
-        if not os.path.isdir(d):
-            continue
-        for name in sorted(os.listdir(d)):
-            if name.endswith(ext):
-                log.warning("plugin %s skipped: the %s plugin runtime is not ported yet (ROADMAP item 5)",
-                            os.path.join(d, name), sub)
+def _load_wasm_dir(registry, directory):
+    """Load the .wasm plugins already on disk (as ``load_plugins_dir`` does
+    for native ones); a bad plugin logs a WARNING and does not stop the start."""
+    plugins = []
+    if os.path.isdir(directory):
+        for name in sorted(os.listdir(directory)):
+            if name.endswith(".wasm"):
+                try:
+                    plugins.append(load_wasm_plugin(registry, os.path.join(directory, name)))
+                except Exception as e:  # noqa: BLE001 — a bad plugin must not kill startup
+                    log.warning("failed to load wasm plugin %s: %s", name, e)
+    return plugins
 
 
 class AppState:
@@ -136,7 +142,9 @@ class AppState:
         # one process-wide batcher: device work from ALL sessions is packed
         # into shared per-node-type batches
         self.batcher = DeviceBatcher(device=self.device)
-        _skip_plugin_files(config.plugins_dir)
+        # plugins already on disk: plugins_dir/wasm, then plugins_dir/native
+        self.wasm_plugins = _load_wasm_dir(self.registry, os.path.join(config.plugins_dir, "wasm"))
+        self.native_plugins = load_plugins_dir(self.registry, os.path.join(config.plugins_dir, "native"))
 
     def broadcast(self, event: dict) -> None:
         """Fan an event out to every connected control client."""
@@ -610,11 +618,13 @@ def create_app(config: Optional[ServerConfig] = None, *, device=None) -> web.App
     app.router.add_get(f"{prefix}/moq/{{path:.*}}", moq_media_ws)
 
     from .observability import add_observability_routes
+    from .plugins_api import add_plugin_routes
     from .samples import add_sample_routes
     from .ui import add_ui_routes
 
     add_sample_routes(app, prefix)
     add_observability_routes(app, prefix)
+    add_plugin_routes(app, prefix)
     add_ui_routes(app, prefix)
 
     async def on_startup(app):

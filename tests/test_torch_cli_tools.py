@@ -12,6 +12,9 @@ client) and ``api/gen_ts_types.py`` against the JAX package's.
   (oneshot requests, dynamic sessions, live tunes) and leaves no session.
 * ``gen_ts_types``: the same TypeScript, byte for byte, under a header that
   names each package's own generator.
+* ``plugins list | load | delete`` against the port's server, a native and
+  a WASM plugin (the routes themselves are held against the JAX server in
+  ``tests/test_torch_plugins.py``).
 """
 
 from __future__ import annotations
@@ -72,9 +75,11 @@ def media_dir(tmp_path_factory):
     return d
 
 
-async def _port_server():
+async def _port_server(**fields):
     cfg = ServerConfig()
     cfg.moq_enabled = False  # file paths stay open: the path policy is process-wide
+    for k, v in fields.items():
+        setattr(cfg, k, v)
     app = create_app(cfg, device="cpu")
     runner = web.AppRunner(app)
     port = await runner.start("127.0.0.1", 0)
@@ -206,28 +211,33 @@ def test_loadtest_metrics_match_jax():
     assert a == b and b["requests"] == len(samples)
 
 
-def test_quick_mixed_loadtest_run(media_dir, capsys):
+def test_quick_mixed_loadtest_run(media_dir, capsys, tmp_path):
     """A 3-second mixed run against the port's server: oneshot gain
     requests at concurrency 2, two dynamic sessions whose gain is tuned
     every 200 ms; every request succeeds, no session is left. The populate
-    lists are named, not loaded."""
+    phase uploads its plugin first: it is registered when the run starts."""
+    from streamkit_tpu_torch.plugins.wasm_asm import build_gain_wasm
+
+    (media_dir / "wgain.wasm").write_bytes(build_gain_wasm())
     cfg = torch_lt.LoadTestConfig(
         scenario="mixed", duration_secs=3.0, oneshot_concurrency=2, oneshot_pipeline=str(media_dir / "gain.yaml"),
         oneshot_input_file=str(media_dir / "tone.wav"), session_count=2, tune_interval_ms=200.0,
         dynamic_pipelines=[str(media_dir / "live_gain.yml")], real_time_updates=True, update_interval_ms=1000.0,
-        populate_plugins_native=["plugins/native/gain.so"])
+        populate_plugins_wasm=[str(media_dir / "wgain.wasm")])
 
     async def main():
-        app, runner, base = await _port_server()
+        app, runner, base = await _port_server(plugins_dir=str(tmp_path / "plugins"))
         cfg.server = base
         try:
-            return await torch_lt.run_load_test(cfg), app["state"].sessions.list()
+            results = await torch_lt.run_load_test(cfg)
+            return results, app["state"].sessions.list(), [p.kind for p in app["state"].wasm_plugins]
         finally:
             await runner.cleanup()
 
-    results, left = asyncio.run(main())
+    results, left, plugins = asyncio.run(main())
     out = capsys.readouterr().out
-    assert "populate: plugins/native/gain.so not loaded" in out and "oneshot:" in out
+    assert "populate: loaded plugin::wasm::wgain" in out and "oneshot:" in out
+    assert plugins == ["plugin::wasm::wgain"]
     assert set(results) == {"oneshot", "dynamic", "tune"}
     for kind in ("oneshot", "dynamic", "tune"):
         assert results[kind]["requests"] >= 2, results
@@ -238,7 +248,7 @@ def test_quick_mixed_loadtest_run(media_dir, capsys):
 
 def test_cli_runs_shell_and_loadtest(media_dir, tmp_path, capsys, monkeypatch):
     """``skit-tpu-cli lt <toml>`` and ``shell`` run (no longer exit 2);
-    ``moq`` and ``plugins`` still name their ROADMAP item."""
+    ``moq`` still names its ROADMAP item."""
     toml = tmp_path / "lt.toml"
 
     async def main():
@@ -260,9 +270,42 @@ def test_cli_runs_shell_and_loadtest(media_dir, tmp_path, capsys, monkeypatch):
     out = capsys.readouterr()
     assert (rc_lt, rc_shell) == (0, 0) and not left
     assert '"success_rate": 1.0' in out.out and "created + selected" in out.out
-    assert set(torch_cli.NOT_PORTED) == {"moq", "plugins"}
-    assert torch_cli.main(["plugins", "list"]) == 2
-    assert "ROADMAP item 5" in capsys.readouterr().err
+    assert set(torch_cli.NOT_PORTED) == {"moq"}
+    assert torch_cli.main(["moq", "subscribe", "captions"]) == 2
+    assert "ROADMAP item 4" in capsys.readouterr().err
+
+
+def test_cli_plugins_commands(tmp_path, capsys):
+    """``skit-tpu-cli plugins list | load | delete`` against the port's server."""
+    from _torch_native import build
+    from streamkit_tpu_torch.plugins.wasm_asm import build_gain_wasm
+
+    gain_so = build("gain_cpp.so")
+    wasm = tmp_path / "wgain.wasm"
+    wasm.write_bytes(build_gain_wasm())
+
+    async def main():
+        app, runner, base = await _port_server(plugins_dir=str(tmp_path / "plugins"))
+        try:
+            loop = asyncio.get_running_loop()
+
+            def cli(*args):
+                return torch_cli.main(list(args))
+
+            rcs = []
+            for args in (("load", gain_so), ("load", str(wasm)), ("list",), ("delete", "plugin::native::gain_cpp"),
+                         ("delete", "plugin::wasm::wgain"), ("list",), ("delete", "plugin::wasm::wgain")):
+                rcs.append(await loop.run_in_executor(None, cli, "plugins", args[0], *args[1:], "-s", base))
+            return rcs, app["state"].registry.kinds()
+        finally:
+            await runner.cleanup()
+
+    rcs, kinds = asyncio.run(main())
+    out = capsys.readouterr()
+    assert rcs == [0, 0, 0, 0, 0, 0, 1]
+    assert '"kind": "plugin::native::gain_cpp"' in out.out and '"runtime": "wasm"' in out.out
+    assert "deleted plugin::wasm::wgain" in out.out and "error: HTTP 404" in out.err
+    assert not [k for k in kinds if "gain_cpp" in k or "wgain" in k]
 
 
 def test_gen_ts_types_equal():

@@ -33,6 +33,7 @@ from streamkit_tpu_torch.ops import _build
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)  # chip_smoke.py's FLAC encoder
 
+from _torch_native import point_jax_av  # noqa: E402
 from chip_smoke import flac_verbatim  # noqa: E402
 
 async def _drive(core, node, packets):
@@ -121,12 +122,15 @@ def test_flac_decodes_the_samples_bit_for_bit(flac_node, seconds):
     np.testing.assert_array_equal(out, pcm.astype(np.float32) / 32768.0)
 
 
-def test_flac_pcm_equals_the_jax_node(flac_node):
+def test_flac_pcm_equals_the_jax_node(flac_node, monkeypatch):
+    """The JAX node decodes through the shim that ``_torch_native`` builds
+    from ``native/shims/av_decode.cpp``, whether or not ``native/build/``
+    holds one."""
     node_cls, _ = flac_node
     from streamkit_tpu.nodes.codecs import av as jax_av
 
-    if not os.path.exists(jax_av._SHIM_PATH):
-        pytest.skip("the JAX package's prebuilt libav shim (native/build/libskit_av.so) is absent")
+    assert point_jax_av(monkeypatch) is not None  # the port's shim built, so libav is present
+    monkeypatch.setattr(jax_av.AvLib, "_lib", None)  # load the shim pointed at, not one loaded before
     body = flac_verbatim(_flac_pcm(2.0, seed=7))
     got = {pkg: _decode(core, cls, body) for pkg, core, cls in
            (("jax", jax_core, jax_av.AvDecoderNode), ("torch", torch_core, node_cls))}

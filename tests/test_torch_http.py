@@ -549,9 +549,9 @@ def test_serve_port_0_subprocess_on_cpu(tmp_path):
 
 
 def test_cli_commands_against_the_port_server(tmp_path):
-    """The CLI's ``oneshot``, ``create``, ``list``, ``destroy`` and ``nodes``
-    against a port server on the CPU; a command not ported yet exits 2 and
-    names its ROADMAP item."""
+    """The CLI's ``oneshot``, ``create``, ``list``, ``destroy``, ``nodes`` and
+    ``plugins list`` against a port server on the CPU; a command not ported
+    yet (``moq``) exits 2."""
     from streamkit_tpu_torch.cli.main import main as cli_main
 
     pipeline = tmp_path / "p.yml"
@@ -575,9 +575,10 @@ def test_cli_commands_against_the_port_server(tmp_path):
             rcs.append(await loop.run_in_executor(None, cli, "destroy", "-s", base, sessions[0]["id"]))
             rcs.append(await loop.run_in_executor(None, cli, "nodes", "-s", base))
             rcs.append(await loop.run_in_executor(None, cli, "plugins", "list", "-s", base))
+            rcs.append(await loop.run_in_executor(None, cli, "moq", "subscribe", "captions"))
             return rcs, sessions, len(app["state"].sessions.list())
 
     rcs, sessions, left = run(main())
-    assert rcs == [0, 0, 0, 0, 0, 2]
+    assert rcs == [0, 0, 0, 0, 0, 0, 2]
     assert [s["name"] for s in sessions] == ["cli-sess"] and left == 0
     assert out.read_bytes()[:4] == b"RIFF"

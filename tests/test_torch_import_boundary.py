@@ -113,6 +113,12 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.ops.tensor_parallel
     import streamkit_tpu_torch.ops.vad
     import streamkit_tpu_torch.parallel
+    import streamkit_tpu_torch.plugins
+    import streamkit_tpu_torch.plugins.component
+    import streamkit_tpu_torch.plugins.component_asm
+    import streamkit_tpu_torch.plugins.native
+    import streamkit_tpu_torch.plugins.wasm
+    import streamkit_tpu_torch.plugins.wasm_asm
     import streamkit_tpu_torch.parallel.train
     import streamkit_tpu_torch.parallel.dryrun
     import streamkit_tpu_torch.parallel.launch
@@ -126,6 +132,7 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.server.observability
     import streamkit_tpu_torch.server.otlp
     import streamkit_tpu_torch.server.permissions
+    import streamkit_tpu_torch.server.plugins_api
     import streamkit_tpu_torch.server.profiling
     import streamkit_tpu_torch.server.samples
     import streamkit_tpu_torch.server.sessions
@@ -286,9 +293,10 @@ _BLOCKED = textwrap.dedent(
     import sys
     for name in ("aiohttp", "jax", "cryptography"):
         sys.modules[name] = None  # any import of them now fails
-    import asyncio, json
+    import asyncio, json, tempfile
     from streamkit_tpu_torch.server import ServerConfig, create_app
-    from streamkit_tpu_torch.server.http import AppRunner, ClientSession
+    from streamkit_tpu_torch.server.http import AppRunner, ClientSession, FormData
+    from streamkit_tpu_torch.plugins.wasm_asm import build_gain_wasm
     import streamkit_tpu_torch.cli.main
     import streamkit_tpu_torch.cli.loadtest
     import streamkit_tpu_torch.cli.shell
@@ -299,6 +307,8 @@ _BLOCKED = textwrap.dedent(
         cfg.otlp_endpoint = "http://127.0.0.1:1"  # nothing listens: the pusher counts failures
         cfg.otlp_interval_secs = 0.05
         cfg.script_fetch_allowlist = [{"url": "http://127.0.0.1:1/*", "methods": ["GET"]}]
+        plugins = tempfile.TemporaryDirectory()
+        cfg.plugins_dir = plugins.name
         app = create_app(cfg, device="cpu")
         runner = AppRunner(app)
         port = await runner.start("127.0.0.1", 0)
@@ -308,6 +318,10 @@ _BLOCKED = textwrap.dedent(
             health = await (await s.get(base + "/healthz")).json()
             heap = await (await s.get(base + "/api/v1/profile/heap?duration_secs=0")).json()
             trace = await (await s.get(base + "/api/v1/profile/device?duration_secs=0.1")).json()
+            form = FormData()
+            form.add_field("file", build_gain_wasm(), filename="wgain.wasm")
+            uploaded = await s.post(base + "/api/v1/plugins", data=form)
+            uploaded = (uploaded.status, await uploaded.json())
             ws = await s.ws_connect(base + "/api/v1/control")
             await ws.send_json({"type": "request", "correlation_id": "c", "payload": {"action": "listsessions"}})
             listed = (await ws.receive(timeout=10)).json()
@@ -318,11 +332,13 @@ _BLOCKED = textwrap.dedent(
                 await asyncio.sleep(0.05)
         finally:
             await runner.cleanup()
+            plugins.cleanup()
         assert app["state"].otlp.failures >= 1 and app["state"].otlp.exports == 0
         assert health == {"status": "ok"}, health
         assert heap["device"] == {"device": "cpu"}, heap
         assert "traceEvents" in trace, list(trace)
         assert listed["payload"] == {"action": "sessionslisted", "sessions": []}, listed
+        assert uploaded == (201, {"kind": "plugin::wasm::wgain", "description": "WASM plugin wgain"}), uploaded
 
     asyncio.run(main())
     print("OK")
@@ -332,7 +348,8 @@ _BLOCKED = textwrap.dedent(
 
 def test_server_runs_without_aiohttp_jax_or_cryptography():
     """The server, the CLI and the transport nodes import, and the server
-    answers HTTP, WebSocket and both profile routes, in an interpreter where
+    answers HTTP, WebSocket, both profile routes and a plugin upload, in an
+    interpreter where
     ``aiohttp``, ``jax`` and ``cryptography`` cannot be imported (none is on
     the card's machine but JAX, which the port never uses)."""
     env = dict(os.environ)

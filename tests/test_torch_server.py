@@ -5,7 +5,7 @@ test (the JAX server through aiohttp's ``TestServer``, the port's through
 sent by aiohttp's client to each, get the same status codes and bodies.
 
 Case for case the mirror of ``tests/test_server.py`` (its plugin-route case
-waits for the plugin runtimes, ROADMAP item 5), plus a oneshot STT request
+is in ``tests/test_torch_plugins.py``), plus a oneshot STT request
 through a small f32 Whisper whose Transcription lines equal the JAX
 server's. Bodies that carry a session id or a time are compared with those
 fields normalised."""
@@ -23,6 +23,7 @@ from aiohttp.test_utils import TestServer
 import streamkit_tpu.server as jax_server
 import streamkit_tpu_torch.server as torch_server
 from streamkit_tpu_torch.server.http import AppRunner
+from _torch_native import point_jax_av
 from test_server import DOUBLE_VOLUME_YAML, make_wav
 from test_torch_whisper_node import _json_key, hf_dir, speech_wav, stt_doc  # noqa: F401  (module fixture)
 
@@ -153,9 +154,16 @@ def test_schema_permissions_config_and_unknown_routes(path):
         assert status == 200 and json.loads(body)
 
 
-def test_schema_nodes_agree_on_every_ported_kind():
+def test_schema_nodes_agree_on_every_ported_kind(monkeypatch):
     """The port lists the kinds it registers; each is listed as the JAX
-    server lists it (the MoQ publisher's input also takes Binary)."""
+    server lists it (the MoQ publisher's input also takes Binary). The JAX
+    libav node loads a shim built here from ``native/shims`` where libav is
+    present and none where it is absent, as the port builds its own: both
+    list ``audio::flac::decoder`` or neither does, whether or not
+    ``native/build/`` exists."""
+    from streamkit_tpu_torch.nodes.codecs import flac_available
+
+    assert (point_jax_av(monkeypatch) is not None) == flac_available()
     got = on_both(lambda s, base, app: fetch(s, "GET", base + "/api/v1/schema/nodes"))
     defs = {pkg: {d["kind"]: d for d in json.loads(got[pkg][2])["nodes"]} for pkg in PACKAGES}
     assert got["jax"][0] == got["torch"][0] == 200

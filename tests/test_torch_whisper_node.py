@@ -40,14 +40,22 @@ PACKAGES = {
 
 @pytest.fixture(scope="module")
 def registries():
+    """Both packages' registries. The JAX libav node loads the shim that
+    ``_torch_native`` builds from ``native/shims`` (none where libav is
+    absent), so FLAC registers in both or in neither, whatever
+    ``native/build/`` holds."""
+    from _torch_native import point_jax_av
+
     out = {}
-    for name, (_, core, _, nodes) in PACKAGES.items():
-        reg = core.NodeRegistry()
-        if name == "torch":
-            nodes.register_nodes(reg, device="cpu")
-        else:
-            nodes.register_nodes(reg)
-        out[name] = reg
+    with pytest.MonkeyPatch.context() as mp:
+        point_jax_av(mp)
+        for name, (_, core, _, nodes) in PACKAGES.items():
+            reg = core.NodeRegistry()
+            if name == "torch":
+                nodes.register_nodes(reg, device="cpu")
+            else:
+                nodes.register_nodes(reg)
+            out[name] = reg
     return out
 
 
@@ -352,17 +360,12 @@ def test_only_host_kinds_are_missing_from_the_port(registries):
     """The port registers every kind of the JAX registry wherever the same
     host libraries load (33 kinds, up to 37 with libopus, libmpg123 and
     libav). Opus and MP3 load the same system libraries in both packages;
-    the FLAC decoder is the one kind whose library differs: the JAX package
-    loads a prebuilt ``native/build/libskit_av.so``, the port builds its own
-    ``csrc/av_decode.cpp``, so where only the port's shim exists only the
-    port registers it."""
-    from streamkit_tpu_torch.nodes.codecs import flac_available
-
+    for FLAC the JAX package loads the libav shim built from its own source
+    by the test (``registries``) and the port builds ``csrc/av_decode.cpp``."""
     jax_kinds, port_kinds = set(registries["jax"].kinds()), set(registries["torch"].kinds())
     assert len(port_kinds) == len(PORT_KINDS) + len(_gated_kinds())
     assert not HOST_KINDS_TO_PORT
-    only_port = set(FLAC_KINDS) - jax_kinds if flac_available() else set()
-    assert port_kinds == jax_kinds | only_port
+    assert port_kinds == jax_kinds
 
 
 @pytest.mark.parametrize("kind", PORT_KINDS + GATED_KINDS)
@@ -370,8 +373,6 @@ def test_registered_kind_exists_in_jax_with_equal_pins(registries, kind):
     jd, td = _definitions(registries["jax"]), _definitions(registries["torch"])
     if kind in GATED_KINDS and kind not in td:
         pytest.skip("its host library does not load: the kind is not registered")
-    if kind in FLAC_KINDS and kind not in jd:
-        pytest.skip("the JAX package's prebuilt libav shim (native/build) is absent")
     assert kind in jd and kind in td
     if kind in EXTRA_ACCEPTS:
         (tp,), (jp,) = td[kind].input_pins, jd[kind].input_pins
