@@ -140,7 +140,13 @@
    /api/v1/sessions``, ``double_volume.yml`` equal to the CPU's bytes,
    ``live_captions.yml``'s graph built over the WebSocket control plane
    (file reader and WAV demuxer in front) whose captions a WebSocket
-   subscriber reads from ``/moq/captions`` (partials and a final; 2 K2 and
+   subscriber reads from ``/moq/captions`` beside two WebTransport
+   subscribers on the server's QUIC acceptor (the port's native
+   ``MoqClient`` and ``MoqLiteClient``, the fingerprint pinned from
+   ``/api/v1/moq/fingerprints``; the three receive the same frames and
+   the same final line; ``# webtransport``: libcrypto, handshakes, frames
+   and dropped groups, host µs to seal and open a 1200-byte packet, 4 MiB
+   over one loopback stream) (partials and a final; 2 K2 and
    32 K3 per fused call; a device profile of the session names K3; no
    session or stream-table row left after ``destroysession``), the metrics
    and heap routes, a ``core::script`` ``fetch()`` under the server's
@@ -3160,6 +3166,197 @@ async def server_plugins_step(client, base: str, state, post_process) -> dict:
     return report
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+class WebTransportSubscribers:
+    """The two WebTransport subscribers of the server's live session: the
+    port's native ``MoqClient`` and its ``MoqLiteClient`` on the server's
+    QUIC acceptor, each pinning the fingerprint that
+    ``/api/v1/moq/fingerprints`` serves."""
+
+    def __init__(self, relay, broadcast: str) -> None:
+        self.relay, self.broadcast = relay, broadcast
+        self.clients, self.frames, self.tasks, self.consumers, self.handshake_ms = {}, {}, [], {}, {}
+
+    async def subscribe(self, fps: dict) -> None:
+        from streamkit_tpu_torch.moq.lite_session import MoqLiteClient
+        from streamkit_tpu_torch.moq.session import MoqClient
+
+        pins = [bytes.fromhex(f) for f in fps["fingerprints"]]
+        for label, cls in (("native", MoqClient), ("lite", MoqLiteClient)):
+            bc = self.relay.get(self.broadcast)
+            before = set(bc._consumers)
+            client = self.clients[label] = cls()
+            t0 = time.perf_counter()
+            await client.connect("127.0.0.1", fps["port"], pins)
+            self.handshake_ms[label] = (time.perf_counter() - t0) * 1e3
+            sub = await client.subscribe(self.broadcast, timeout=30)
+            t0 = time.monotonic()
+            while len(bc._consumers) == len(before):  # the acceptor's relay subscription
+                if time.monotonic() - t0 > 30:
+                    raise AssertionError(f"the WebTransport {label} subscriber never reached the relay")
+                await asyncio.sleep(0.01)
+            (self.consumers[label],) = set(bc._consumers) - before
+            out = self.frames[label] = []
+            self.tasks.append(asyncio.ensure_future(self._collect(sub, out)))
+
+    @staticmethod
+    async def _collect(sub, out: list) -> None:
+        while True:
+            f = await sub.recv()
+            if f is None:
+                return
+            out.append(f)
+
+    async def finish(self, ws_frames: list) -> dict:
+        """Once the WebSocket subscriber has the whole broadcast: wait for the
+        WebTransport ones to drain, close them, and compare."""
+        t0 = time.monotonic()
+        while any(len(f) < len(ws_frames) for f in self.frames.values()) and time.monotonic() - t0 < 20:
+            await asyncio.sleep(0.05)
+        for task in self.tasks:
+            task.cancel()
+        for client in self.clients.values():
+            client.close()
+        subs = {"websocket": ws_frames, **{k: [(p, ts) for p, ts, _ in v] for k, v in self.frames.items()}}
+        final = {}
+        for label, got in subs.items():
+            finals = [r["text"] for r in transcripts(b"".join(p for p, _ in got)) if r["is_final"]]
+            final[label] = finals[-1] if finals else None
+        common = set.intersection(*(set(v) for v in subs.values()))
+        same = len({tuple(f for f in v if f in common) for v in subs.values()}) == 1
+        dropped = {"websocket": None, **{k: c.dropped_groups for k, c in self.consumers.items()}}
+        report = {"handshake_ms": self.handshake_ms, "frames": {k: len(v) for k, v in subs.items()},
+                  "dropped_groups": dropped, "common_frames": len(common), "common_equal": same,
+                  "final_line_equal": len(set(final.values())) == 1 and None not in final.values()}
+        if not (same and common and report["final_line_equal"]):
+            raise AssertionError(f"webtransport subscribers disagree with the WebSocket one: {report}; "
+                                 f"finals {final}")
+        if not any(dropped.values()) and len({tuple(v) for v in subs.values()}) != 1:
+            raise AssertionError(f"webtransport subscribers dropped no group but got other frames: {report}")
+        return report
+
+
+class _NoWebTransport:
+    """Stands in for :class:`WebTransportSubscribers` where no libcrypto loads."""
+
+    def __init__(self, reason: str) -> None:
+        self.reason = reason
+
+    async def finish(self, ws_frames: list) -> dict:
+        return {"absent": self.reason}
+
+
+async def webtransport_subscribers(state, client, base: str, broadcast: str):
+    """Join the live session's WebSocket subscriber on ``broadcast`` with the
+    two WebTransport subscribers, or say why there are none (libcrypto
+    absent: then the server runs no acceptor and 404s the fingerprints)."""
+    from streamkit_tpu_torch.quic import _libcrypto
+
+    r = await client.get(base + "/api/v1/moq/fingerprints")
+    fps = await r.json() if r.status == 200 else None
+    try:
+        _libcrypto.lib()
+    except _libcrypto.LibcryptoUnavailable as e:
+        if state.webtransport is not None or r.status != 404:
+            raise AssertionError(f"an acceptor runs although libcrypto does not load: {r.status} {fps}")
+        log(f"# webtransport: OpenSSL's libcrypto is absent ({e}): the server serves MoQ over /moq/{{path}} only")
+        return _NoWebTransport(str(e))
+    if state.webtransport is None or r.status != 200 or fps["port"] != state.webtransport.port:
+        raise AssertionError(f"libcrypto loads but the acceptor is missing: {r.status} {fps}")
+    subs = WebTransportSubscribers(state.moq_relay, broadcast)
+    await subs.subscribe(fps)
+    return subs
+
+
+async def quic_push_s(nbytes: int) -> float:
+    """Seconds to push ``nbytes`` over one QUIC stream between the port's own
+    client and server on loopback, until the server acknowledges the count."""
+    import hashlib
+
+    from streamkit_tpu_torch.quic.connection import StreamEvent
+    from streamkit_tpu_torch.quic.endpoint import connect, serve
+    from streamkit_tpu_torch.quic.tls import generate_self_signed
+
+    cert, key = generate_self_signed()
+
+    async def on_conn(proto):
+        await proto.handshake_done
+        got = 0
+        while True:
+            ev = await proto.events.get()
+            if isinstance(ev, StreamEvent):
+                got += len(ev.data)
+                if ev.fin:
+                    proto.conn.send_stream_data(ev.stream_id, str(got).encode(), fin=True)
+                    proto.transmit()
+
+    server, transport = await serve("127.0.0.1", 0, cert, key, on_conn)
+    client, proto = await connect("127.0.0.1", transport.get_extra_info("sockname")[1],
+                                  [hashlib.sha256(cert).digest()])
+    try:
+        blob = os.urandom(nbytes)
+        t0 = time.perf_counter()
+        sid = proto.conn.open_bidi_stream()
+        proto.conn.send_stream_data(sid, blob, fin=True)
+        proto.transmit()
+        reply = b""
+        while True:
+            ev = await asyncio.wait_for(proto.events.get(), 120)
+            if isinstance(ev, StreamEvent) and ev.stream_id == sid:
+                reply += ev.data
+                if ev.fin:
+                    break
+        wall = time.perf_counter() - t0
+    finally:
+        client.close()
+        server.close()
+    if int(reply) != nbytes:
+        raise AssertionError(f"quic push: the server counted {reply!r} of {nbytes} bytes")
+    return wall
+
+
+async def webtransport_report(subs: dict) -> dict:
+    """``# webtransport``: the subscribers' comparison, libcrypto's path and
+    version, host µs to seal and to open one 1200-byte packet (AES-128-GCM
+    with the header as AAD, one key set) and to make one header-protection
+    mask, and the seconds to push 4 MiB over one loopback stream."""
+    import importlib.util
+
+    from streamkit_tpu_torch.quic import _libcrypto
+
+    # the port never imports it; recorded because the JAX stack needs it
+    report = dict(subs, cryptography_installed=importlib.util.find_spec("cryptography") is not None)
+    if "absent" not in subs:
+        from streamkit_tpu_torch.quic.crypto import keys_from_secret
+
+        keys = keys_from_secret(os.urandom(32))
+        header, payload, n = os.urandom(22), os.urandom(1200), 2000
+        t0 = time.perf_counter()
+        sealed = [keys.seal(pn, header, payload) for pn in range(n)]
+        seal_us = (time.perf_counter() - t0) / n * 1e6
+        t0 = time.perf_counter()
+        opened = [keys.open(pn, header, c) for pn, c in enumerate(sealed)]
+        open_us = (time.perf_counter() - t0) / n * 1e6
+        t0 = time.perf_counter()
+        for c in sealed:
+            keys.hp_mask(c[4:20])
+        mask_us = (time.perf_counter() - t0) / n * 1e6
+        if any(o != payload for o in opened):
+            raise AssertionError("webtransport: a sealed packet did not open to its payload")
+        push_s = await quic_push_s(4 << 20)
+        report.update(libcrypto=_libcrypto.library_path(), libcrypto_version=_libcrypto.version(),
+                      seal_1200_us=seal_us, open_1200_us=open_us, hp_mask_us=mask_us,
+                      push_4mib_s=push_s, push_4mib_mib_per_s=4 / push_s)
+    report["card"] = card_line()
+    log("# webtransport " + json.dumps(report))
+    return report
+
+
 def server_phase() -> dict:
     """(b) ``create_app(device="cuda")`` on 127.0.0.1:0 in this script's
     loop; every request through real sockets and the port's client:
@@ -3180,7 +3377,10 @@ def server_phase() -> dict:
        ``speech_8s.wav`` and the WAV demuxer in place of the MoQ subscriber
        and the Opus decoder, a 4× pacer), its captions published by
        ``transport::moq::publisher {broadcast: captions}`` and read by a
-       WebSocket subscriber on ``/moq/captions``: partials and a final;
+       WebSocket subscriber on ``/moq/captions`` and by two WebTransport
+       subscribers over QUIC (:func:`webtransport_subscribers`; where
+       OpenSSL's libcrypto does not load, the WebSocket one alone):
+       partials and a final;
        exactly 2 K2 and 32 K3 per fused call, K1 32 per ring decode; a
        device profile taken meanwhile names K3; after ``destroysession`` no
        session and no stream-table row is left;
@@ -3247,6 +3447,7 @@ def server_phase() -> dict:
     script_body = wav_body(np.concatenate([synth_speech(6.0, seed=31), np.zeros(SR, np.float32)]))
     tmp = tempfile.TemporaryDirectory()
     cfg = ServerConfig()
+    cfg.moq_host, cfg.moq_port = "127.0.0.1", 0  # the WebTransport acceptor on an ephemeral UDP port
     cfg.assets_dir = os.path.join(tmp.name, "assets")
     cfg.plugins_dir = os.path.join(tmp.name, "plugins")
 
@@ -3434,6 +3635,7 @@ def server_phase() -> dict:
                 if time.monotonic() - t0 > 60:
                     raise AssertionError(f"the WebSocket subscriber never attached to {broadcast!r}")
                 await asyncio.sleep(0.01)
+            wt_subs = await webtransport_subscribers(state, client, base, broadcast)
             profiling = asyncio.ensure_future(device_profile())
             await asyncio.sleep(0.5)  # the profiler starts before the first block
             await req("connect", session_id=sid, from_node="reader", from_pin="out", to_node="demux", to_pin="in")
@@ -3445,6 +3647,7 @@ def server_phase() -> dict:
                     raise AssertionError("server live session did not end")
             session_wall = time.monotonic() - t0
             end_msg = await asyncio.wait_for(collector, 60)
+            wt_report = await wt_subs.finish([(p, ts) for p, ts, _ in frames])
             trace_status, trace = await profiling
             torch.cuda.synchronize()
             counts, stats = read_counts(), state.batcher.stats()
@@ -3474,6 +3677,7 @@ def server_phase() -> dict:
                 raise AssertionError(f"device profile ({trace_status}, {len(trace)} bytes) does not name K3")
             if left != {"sessions": []} or any(held.values()):
                 raise AssertionError(f"after destroysession: sessions {left}, stream rows held {held}")
+            report["webtransport"] = await webtransport_report(wt_report)
 
             # 6. observability
             r = await client.get(base + "/api/v1/metrics")
@@ -4009,8 +4213,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(smi)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t_script = time.monotonic()

@@ -95,6 +95,13 @@ class SkitClient:
         async with self._session.get(f"{self.base_url}/api/v1/config") as r:
             return await r.json()
 
+    async def moq_fingerprints(self) -> dict:
+        """The WebTransport acceptor's ``{"fingerprints", "port"}``."""
+        async with self._session.get(f"{self.base_url}/api/v1/moq/fingerprints") as r:
+            if r.status != 200:
+                raise RuntimeError(f"the server runs no WebTransport acceptor ({r.status})")
+            return await r.json()
+
     async def list_plugins(self) -> dict:
         async with self._session.get(f"{self.base_url}/api/v1/plugins") as r:
             return await r.json()

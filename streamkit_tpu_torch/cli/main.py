@@ -4,10 +4,11 @@
 Parity target: ``apps/skit-cli/src/main.rs:15-320`` commands:
 oneshot, create, destroy, list, tune, pipeline, nodes, permissions,
 samples, watch (WS event stream), config, plugins (list / load / delete),
-assets, control, shell (:mod:`.shell`) and loadtest (``lt``,
-:mod:`.loadtest`), on the port's own HTTP / WebSocket client. Not ported
-yet: ``moq`` (ROADMAP item 4: the QUIC client) exits with status 2 and a
-line naming its item.
+assets, control, shell (:mod:`.shell`), loadtest (``lt``,
+:mod:`.loadtest`) and moq (publish / subscribe over WebTransport, native or
+moq-lite), on the port's own HTTP / WebSocket / QUIC clients. ``moq`` takes
+``--server`` like every other command (the JAX CLI's ``moq`` has none and
+fails on ``args.server``).
 """
 
 from __future__ import annotations
@@ -23,9 +24,7 @@ from .client import SkitClient
 from .loadtest import LoadTestConfig, run_load_test
 
 # commands whose modules are not ported yet → the ROADMAP item that holds them
-NOT_PORTED = {
-    "moq": "item 4 (quic/ and moq/{lite,lite_session,session,wire}.py, which need the cryptography package)",
-}
+NOT_PORTED: dict = {}
 
 
 def _add_server_arg(p):
@@ -115,6 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
     msub = p.add_subparsers(dest="moq_cmd", required=True)
     for name in ("publish", "subscribe"):
         m = msub.add_parser(name)
+        _add_server_arg(m)
         m.add_argument("broadcast", help="broadcast name (relay) or gateway path")
         if name == "publish":
             m.add_argument("wav", help="16-bit PCM WAV file to publish as 20 ms frames")
@@ -146,6 +146,9 @@ async def _run(args) -> int:
         results = await run_load_test(cfg)
         print(json.dumps(results, indent=2))
         return 0
+
+    if cmd == "moq":
+        return await _run_moq(args)
 
     async with SkitClient(args.server) as client:
         if cmd == "oneshot":
@@ -241,6 +244,76 @@ async def _run(args) -> int:
     return 0
 
 
+async def _run_moq(args) -> int:
+    """MoQ media client: publish a WAV as 20 ms Opus frames, or subscribe a
+    broadcast and dump raw Opus packets to stdout. ``--protocol lite``
+    speaks moq-lite draft-02 + hang (the reference's wire protocol,
+    peer.rs:459-880); ``native`` is the compact in-house protocol."""
+    import urllib.parse
+    import wave
+
+    import numpy as np
+
+    if args.moq_cmd == "publish":
+        from ..nodes.codecs import opus_available
+
+        if not opus_available():
+            print("error: moq publish encodes Opus and libopus does not load here", file=sys.stderr)
+            return 1
+    host = urllib.parse.urlparse(args.server).hostname or "127.0.0.1"
+    async with SkitClient(args.server) as http:
+        fps = [bytes.fromhex(f) for f in (await http.moq_fingerprints())["fingerprints"]]
+
+    if args.protocol == "lite":
+        from ..moq.lite_session import MoqLiteClient as Client
+    else:
+        from ..moq.session import MoqClient as Client
+
+    client = Client()
+    await client.connect(host, args.moq_port, fps)
+    try:
+        if args.moq_cmd == "publish":
+            from ..nodes.codecs.opus import OpusEncoder
+
+            with wave.open(args.wav) as w:
+                sr, ch = w.getframerate(), w.getnchannels()
+                pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+            audio = pcm.astype(np.float32) / 32768.0
+            if ch > 1:
+                audio = audio.reshape(-1, ch).mean(axis=1)
+            if sr != 48_000:
+                print(f"warning: resampling {sr} -> 48000 not applied; frames sent as-is", file=sys.stderr)
+            enc = OpusEncoder(48_000, 1, 64_000)
+            pub = await client.publish(args.broadcast)
+            await asyncio.sleep(0.3)  # lite: server announce/subscribe handshake
+            frame = 960  # 20 ms @48k
+            n = len(audio) // frame
+            start = asyncio.get_running_loop().time()
+            for i in range(n):
+                delay = start + i * 0.02 - asyncio.get_running_loop().time()
+                if delay > 0:
+                    await asyncio.sleep(delay)
+                pkt = enc.encode(audio[i * frame : (i + 1) * frame])
+                pub.send(pkt, i * 20_000, key=(i % 50 == 0))
+            pub.end()
+            print(f"published {n} frames", file=sys.stderr)
+        else:
+            sub = await client.subscribe(args.broadcast)
+            count = 0
+            while args.frames == 0 or count < args.frames:
+                f = await sub.recv(timeout=30)
+                if f is None:
+                    break
+                payload, ts, key = f
+                sys.stdout.buffer.write(payload)
+                sys.stdout.buffer.flush()
+                count += 1
+            print(f"received {count} frames", file=sys.stderr)
+    finally:
+        client.close()
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     try:
@@ -249,7 +322,7 @@ def main(argv: Optional[list] = None) -> int:
         return 130
     except BrokenPipeError:
         return 0  # downstream pager/head closed the pipe
-    except (RuntimeError, ClientError) as e:
+    except (RuntimeError, ClientError, ConnectionError, TimeoutError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
 

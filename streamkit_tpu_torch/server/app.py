@@ -11,7 +11,9 @@ the reference's (``apps/skit/src/server.rs:1859-1971`` route table):
 * ``GET  /api/v1/permissions`` / ``config`` / ``schema/nodes`` / ``schema/packets``
 * ``POST /api/v1/sessions`` (YAML create) / ``GET /api/v1/sessions`` /
   ``DELETE /api/v1/sessions/{id}`` / ``GET /api/v1/sessions/{id}/pipeline``
-* ``GET /moq/{path}`` — MoQ media over WebSocket
+* ``GET /moq/{path}`` — MoQ media over WebSocket; MoQ over WebTransport on
+  UDP ``moq_port`` (:mod:`.webtransport`) with ``GET /api/v1/moq/fingerprints``
+  and ``GET /certificate.sha256`` when ``moq_enabled``
 * ``GET/POST /api/v1/plugins``, ``DELETE /api/v1/plugins/{kind}`` — native
   and WASM plugins (:mod:`.plugins_api`); ``plugins_dir/{wasm,native}`` is
   loaded at start
@@ -22,10 +24,10 @@ The device enters only through the nodes: :func:`create_app` takes
 runs on the CPU) and hands it to ``register_nodes`` and to the one
 process-wide :class:`~..engine.batcher.DeviceBatcher`. OTLP push
 (:mod:`.otlp`) starts with the app when ``otlp_endpoint`` is set; the script
-node's fetch allowlist and secrets are installed from the config. Not here
-yet, logged at WARNING when configured: the WebTransport / QUIC acceptor
-(ROADMAP item 4). MoQ is served over ``/moq/{path}`` only, as the reference
-serves it when its UDP bind fails.
+node's fetch allowlist and secrets are installed from the config. Where
+OpenSSL's libcrypto does not load, or the UDP bind fails, the server logs a
+WARNING and serves MoQ over ``/moq/{path}`` only, as the reference does when
+its bind fails.
 """
 
 from __future__ import annotations
@@ -135,10 +137,19 @@ class AppState:
 
         self.moq_gateway = init_moq_gateway()
         self.moq_relay = init_moq_relay()
+        # WebTransport/QUIC acceptor (reference server.rs:1975-2085); the
+        # UDP endpoint itself starts on app startup when moq_enabled
         self.webtransport = None
         if config.moq_enabled:
-            log.warning("WebTransport (QUIC) acceptor not started: quic/ and server/webtransport.py are not "
-                        "ported yet (ROADMAP item 4); MoQ is served over /moq/{path} only")
+            from ..quic._libcrypto import LibcryptoUnavailable
+            from .webtransport import WebTransportServer
+
+            try:
+                self.webtransport = WebTransportServer(
+                    self.moq_relay, self.moq_gateway, config.moq_host, config.moq_port
+                )
+            except LibcryptoUnavailable as e:
+                log.warning("WebTransport acceptor not started (%s); MoQ is served over /moq/{path} only", e)
         # one process-wide batcher: device work from ALL sessions is packed
         # into shared per-node-type batches
         self.batcher = DeviceBatcher(device=self.device)
@@ -626,17 +637,29 @@ def create_app(config: Optional[ServerConfig] = None, *, device=None) -> web.App
     add_observability_routes(app, prefix)
     add_plugin_routes(app, prefix)
     add_ui_routes(app, prefix)
+    if app["state"].webtransport is not None:
+        from .webtransport import add_fingerprint_routes
+
+        add_fingerprint_routes(app, prefix)
 
     async def on_startup(app):
         state = app["state"]
         if state.otlp is not None:
             state.otlp.start()
             log.info("OTLP push telemetry → %s every %.0fs", state.otlp.endpoint, state.otlp.interval)
+        if state.webtransport is not None:
+            try:
+                await state.webtransport.start()
+            except OSError as e:
+                log.warning("WebTransport acceptor failed to bind: %s", e)
+                state.webtransport = None
 
     async def on_shutdown(app):
         state = app["state"]
         if state.otlp is not None:
             await state.otlp.stop()
+        if state.webtransport is not None:
+            await state.webtransport.stop()
         await state.sessions.destroy_all()
         state.batcher.stop()
 

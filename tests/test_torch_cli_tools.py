@@ -19,6 +19,7 @@ client) and ``api/gen_ts_types.py`` against the JAX package's.
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import dataclasses
 import glob
@@ -38,6 +39,7 @@ import streamkit_tpu_torch.api.gen_ts_types as torch_gen
 import streamkit_tpu_torch.cli.client as torch_client
 import streamkit_tpu_torch.cli.loadtest as torch_lt
 import streamkit_tpu_torch.cli.shell as torch_shell
+import streamkit_tpu_torch.moq.relay as torch_relay
 from streamkit_tpu_torch.cli import main as torch_cli
 from streamkit_tpu_torch.server import ServerConfig, create_app
 from streamkit_tpu_torch.server import http as web
@@ -248,7 +250,10 @@ def test_quick_mixed_loadtest_run(media_dir, capsys, tmp_path):
 
 def test_cli_runs_shell_and_loadtest(media_dir, tmp_path, capsys, monkeypatch):
     """``skit-tpu-cli lt <toml>`` and ``shell`` run (no longer exit 2);
-    ``moq`` still names its ROADMAP item."""
+    every command is ported, and ``moq subscribe`` of a broadcast nobody
+    announced fails as the JAX CLI's client code fails, with the relay's
+    "broadcast not announced" (the JAX CLI itself has no ``--server`` for
+    ``moq``, so its ``_run_moq`` is driven with the same fields)."""
     toml = tmp_path / "lt.toml"
 
     async def main():
@@ -270,9 +275,28 @@ def test_cli_runs_shell_and_loadtest(media_dir, tmp_path, capsys, monkeypatch):
     out = capsys.readouterr()
     assert (rc_lt, rc_shell) == (0, 0) and not left
     assert '"success_rate": 1.0' in out.out and "created + selected" in out.out
-    assert set(torch_cli.NOT_PORTED) == {"moq"}
-    assert torch_cli.main(["moq", "subscribe", "captions"]) == 2
-    assert "ROADMAP item 4" in capsys.readouterr().err
+    assert torch_cli.NOT_PORTED == {}
+    monkeypatch.setattr(torch_relay, "ANNOUNCE_WAIT_SECS", 0.2)
+
+    async def unannounced():
+        from streamkit_tpu.cli.main import _run_moq as jax_run_moq
+
+        app, runner, base = await _port_server(moq_enabled=True, moq_port=0)
+        try:
+            wt_port = app["state"].webtransport.port
+            fields = dict(server=base, moq_cmd="subscribe", broadcast="captions", frames=1, protocol="native",
+                          moq_port=wt_port)
+            with pytest.raises(ConnectionError) as jax_error:
+                await jax_run_moq(argparse.Namespace(**fields))
+            rc = await asyncio.get_running_loop().run_in_executor(
+                None, torch_cli.main, ["moq", "subscribe", "captions", "-s", base, "--moq-port", str(wt_port)])
+            return str(jax_error.value), rc
+        finally:
+            await runner.cleanup()
+
+    jax_error, rc = asyncio.run(unannounced())
+    assert jax_error == "broadcast not announced"
+    assert rc == 1 and capsys.readouterr().err.strip().endswith("error: broadcast not announced")
 
 
 def test_cli_plugins_commands(tmp_path, capsys):

@@ -511,11 +511,16 @@ steps:
 # -- the entry point -------------------------------------------------------------
 def test_serve_port_0_subprocess_on_cpu(tmp_path):
     """``python -m streamkit_tpu_torch.server serve --port 0 --device cpu``
-    binds an ephemeral port, logs it, answers, and exits 0 on SIGINT."""
+    binds an ephemeral port, logs it, answers, and exits 0 on SIGINT; its
+    WebTransport acceptor (``[moq] port = 0`` in the config) binds an
+    ephemeral UDP port, logs it and reports it on the fingerprint route."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    config = tmp_path / "skit.toml"
+    config.write_text("[moq]\nport = 0\n")
     proc = subprocess.Popen(
         [sys.executable, "-m", "streamkit_tpu_torch.server", "serve", "--address", "127.0.0.1", "--port", "0",
-         "--device", "cpu"], cwd=str(tmp_path), env=env, stderr=subprocess.PIPE, text=True)
+         "--device", "cpu", "--config", str(config)], cwd=str(tmp_path), env=env, stderr=subprocess.PIPE,
+        text=True)
     try:
         port, lines = None, []
         deadline = time.monotonic() + 120
@@ -532,9 +537,10 @@ def test_serve_port_0_subprocess_on_cpu(tmp_path):
             async with aiohttp.ClientSession() as s:
                 health = await fetch(s, "GET", f"http://127.0.0.1:{port}/healthz")
                 nodes = await fetch(s, "GET", f"http://127.0.0.1:{port}/api/v1/schema/nodes")
-                return health, {n["kind"] for n in json.loads(nodes[2])["nodes"]}
+                fps = await fetch(s, "GET", f"http://127.0.0.1:{port}/api/v1/moq/fingerprints")
+                return health, {n["kind"] for n in json.loads(nodes[2])["nodes"]}, json.loads(fps[2])
 
-        (status, _, body), kinds = run(ask())
+        (status, _, body), kinds, fps = run(ask())
         assert status == 200 and json.loads(body) == {"status": "ok"}
         assert "transport::moq::publisher" in kinds and "plugin::native::whisper" in kinds
         proc.send_signal(signal.SIGINT)
@@ -545,13 +551,16 @@ def test_serve_port_0_subprocess_on_cpu(tmp_path):
             proc.wait()
         proc.stderr.close()
     log = "".join(lines)
-    assert "device=cpu" in log and "WebTransport" in log  # the acceptor not ported: one WARNING names it
+    udp = re.search(r"WebTransport MoQ acceptor on udp/(\d+)", log)
+    assert "device=cpu" in log and udp and int(udp.group(1)) == fps["port"] > 0, log
+    assert len(fps["fingerprints"]) == 1
 
 
-def test_cli_commands_against_the_port_server(tmp_path):
-    """The CLI's ``oneshot``, ``create``, ``list``, ``destroy``, ``nodes`` and
-    ``plugins list`` against a port server on the CPU; a command not ported
-    yet (``moq``) exits 2."""
+def test_cli_commands_against_the_port_server(tmp_path, capsys):
+    """The CLI's ``oneshot``, ``create``, ``list``, ``destroy``, ``nodes``,
+    ``plugins list`` and ``moq subscribe`` against a port server on the CPU:
+    ``moq subscribe --frames 3`` takes three frames of a relay broadcast over
+    WebTransport, writes their payloads to stdout and exits 0."""
     from streamkit_tpu_torch.cli.main import main as cli_main
 
     pipeline = tmp_path / "p.yml"
@@ -560,12 +569,21 @@ def test_cli_commands_against_the_port_server(tmp_path):
     media.write_bytes(make_wav(np.full(4800, 0.25, np.float32)))
     out = tmp_path / "out.wav"
 
+    cfg = configs(moq_enabled=True, moq_port=0)["torch"]
+
     async def main():
-        async with serve("torch") as (app, base):
+        async with serve("torch", cfg) as (app, base):
             loop = asyncio.get_running_loop()
 
             def cli(*args):
                 return cli_main(list(args))
+
+            async def publish():
+                b = app["state"].moq_relay.announce("captions")
+                for i in range(200):  # until the subscriber has its frames
+                    b.publish(b"line%d;" % i, i * 20_000, key=(i % 5 == 0))
+                    await asyncio.sleep(0.02)
+                b.end()
 
             rcs = [await loop.run_in_executor(None, cli, "oneshot", "-s", base, str(pipeline), str(media), "-o",
                                               str(out))]
@@ -575,10 +593,16 @@ def test_cli_commands_against_the_port_server(tmp_path):
             rcs.append(await loop.run_in_executor(None, cli, "destroy", "-s", base, sessions[0]["id"]))
             rcs.append(await loop.run_in_executor(None, cli, "nodes", "-s", base))
             rcs.append(await loop.run_in_executor(None, cli, "plugins", "list", "-s", base))
-            rcs.append(await loop.run_in_executor(None, cli, "moq", "subscribe", "captions"))
+            pub = asyncio.ensure_future(publish())
+            rcs.append(await loop.run_in_executor(None, cli, "moq", "subscribe", "captions", "-s", base,
+                                                  "--moq-port", str(app["state"].webtransport.port),
+                                                  "--frames", "3"))
+            pub.cancel()
             return rcs, sessions, len(app["state"].sessions.list())
 
     rcs, sessions, left = run(main())
-    assert rcs == [0, 0, 0, 0, 0, 0, 2]
+    assert rcs == [0, 0, 0, 0, 0, 0, 0]
+    err = capsys.readouterr()
+    assert "received 3 frames" in err.err and re.search(rb"(line\d+;){3}", err.out.encode()), err
     assert [s["name"] for s in sessions] == ["cli-sess"] and left == 0
     assert out.read_bytes()[:4] == b"RIFF"

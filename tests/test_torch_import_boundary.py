@@ -101,7 +101,20 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.nodes.transport.http
     import streamkit_tpu_torch.nodes.transport.moq
     import streamkit_tpu_torch.moq
+    import streamkit_tpu_torch.moq.lite
+    import streamkit_tpu_torch.moq.lite_session
     import streamkit_tpu_torch.moq.relay
+    import streamkit_tpu_torch.moq.session
+    import streamkit_tpu_torch.moq.wire
+    import streamkit_tpu_torch.quic
+    import streamkit_tpu_torch.quic._libcrypto
+    import streamkit_tpu_torch.quic.connection
+    import streamkit_tpu_torch.quic.crypto
+    import streamkit_tpu_torch.quic.endpoint
+    import streamkit_tpu_torch.quic.h3
+    import streamkit_tpu_torch.quic.packet
+    import streamkit_tpu_torch.quic.qpack
+    import streamkit_tpu_torch.quic.tls
     import streamkit_tpu_torch.ops
     import streamkit_tpu_torch.ops._build
     import streamkit_tpu_torch.ops.attention
@@ -137,6 +150,7 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.server.samples
     import streamkit_tpu_torch.server.sessions
     import streamkit_tpu_torch.server.ui
+    import streamkit_tpu_torch.server.webtransport
     import streamkit_tpu_torch.server.websocket
     import streamkit_tpu_torch.utils.jax_prng
     import streamkit_tpu_torch.utils.mjs
@@ -297,6 +311,7 @@ _BLOCKED = textwrap.dedent(
     from streamkit_tpu_torch.server import ServerConfig, create_app
     from streamkit_tpu_torch.server.http import AppRunner, ClientSession, FormData
     from streamkit_tpu_torch.plugins.wasm_asm import build_gain_wasm
+    from streamkit_tpu_torch.moq.session import MoqClient
     import streamkit_tpu_torch.cli.main
     import streamkit_tpu_torch.cli.loadtest
     import streamkit_tpu_torch.cli.shell
@@ -309,6 +324,7 @@ _BLOCKED = textwrap.dedent(
         cfg.script_fetch_allowlist = [{"url": "http://127.0.0.1:1/*", "methods": ["GET"]}]
         plugins = tempfile.TemporaryDirectory()
         cfg.plugins_dir = plugins.name
+        cfg.moq_port = 0  # the WebTransport acceptor on an ephemeral UDP port
         app = create_app(cfg, device="cpu")
         runner = AppRunner(app)
         port = await runner.start("127.0.0.1", 0)
@@ -322,6 +338,15 @@ _BLOCKED = textwrap.dedent(
             form.add_field("file", build_gain_wasm(), filename="wgain.wasm")
             uploaded = await s.post(base + "/api/v1/plugins", data=form)
             uploaded = (uploaded.status, await uploaded.json())
+            fps = await (await s.get(base + "/api/v1/moq/fingerprints")).json()
+            room = app["state"].moq_relay.announce("room")
+            moq = MoqClient()
+            await moq.connect("127.0.0.1", fps["port"], [bytes.fromhex(f) for f in fps["fingerprints"]])
+            sub = await moq.subscribe("room", timeout=10)
+            await asyncio.sleep(0.2)
+            room.publish(b"frame", 20_000, key=True)
+            frame = await sub.recv(timeout=10)
+            moq.close()
             ws = await s.ws_connect(base + "/api/v1/control")
             await ws.send_json({"type": "request", "correlation_id": "c", "payload": {"action": "listsessions"}})
             listed = (await ws.receive(timeout=10)).json()
@@ -335,6 +360,8 @@ _BLOCKED = textwrap.dedent(
             plugins.cleanup()
         assert app["state"].otlp.failures >= 1 and app["state"].otlp.exports == 0
         assert health == {"status": "ok"}, health
+        assert fps["port"] > 0 and len(fps["fingerprints"]) == 1, fps
+        assert frame == (b"frame", 20_000, True), frame
         assert heap["device"] == {"device": "cpu"}, heap
         assert "traceEvents" in trace, list(trace)
         assert listed["payload"] == {"action": "sessionslisted", "sessions": []}, listed
@@ -348,10 +375,11 @@ _BLOCKED = textwrap.dedent(
 
 def test_server_runs_without_aiohttp_jax_or_cryptography():
     """The server, the CLI and the transport nodes import, and the server
-    answers HTTP, WebSocket, both profile routes and a plugin upload, in an
-    interpreter where
-    ``aiohttp``, ``jax`` and ``cryptography`` cannot be imported (none is on
-    the card's machine but JAX, which the port never uses)."""
+    answers HTTP, WebSocket, both profile routes, a plugin upload, the MoQ
+    fingerprint route and a WebTransport MoQ subscribe from the port's own
+    client (QUIC on OpenSSL's libcrypto), in an interpreter where
+    ``aiohttp``, ``jax`` and ``cryptography`` cannot be imported: the port
+    needs none of them on the machine with the card."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(

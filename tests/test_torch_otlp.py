@@ -138,7 +138,10 @@ def test_push_to_live_collector_matches_jax(monkeypatch):
                 try:
                     assert isinstance(state.otlp, (torch_otlp if pkg == "torch" else jax_otlp).OtlpPusher)
                     state.broadcast(event)
-                    assert await _wait(lambda: col.posts["/v1/metrics"] and col.posts["/v1/logs"])
+                    # a push counts once the collector's last response is read: wait for
+                    # that too, not only for the collector to have the bodies
+                    assert await _wait(lambda: col.posts["/v1/metrics"] and col.posts["/v1/logs"]
+                                       and state.otlp.exports >= 1)
                     assert state.otlp.exports >= 1 and state.otlp.failures == 0
                 finally:
                     await (runner.cleanup() if pkg == "torch" else client.close())

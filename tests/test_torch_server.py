@@ -31,8 +31,9 @@ PACKAGES = ("jax", "torch")
 
 
 def configs(**fields):
-    """The same ``ServerConfig`` for both packages (the JAX one without its
-    WebTransport acceptor, which the port does not have yet)."""
+    """The same ``ServerConfig`` for both packages, each without its
+    WebTransport acceptor (whose default UDP port 4443 one test process
+    cannot bind twice; ``tests/test_torch_webtransport.py`` binds port 0)."""
     out = {}
     for pkg, mod in (("jax", jax_server), ("torch", torch_server)):
         cfg = mod.ServerConfig()
