@@ -153,8 +153,9 @@
    ``[script]`` allowlist and scoped secret, ``# server plugins``: the three
    plugin files of 6d uploaded, listed, named by the schema, one STT
    request through the uploaded native gain equal to 6d's lines, all three
-   deleted, then ``skit-tpu-cli plugins list / load / delete`` as child
-   processes (each exits 0), ``# loadtest``:
+   deleted, then ``skit-tpu-cli --help`` (a CLI child's start, timed) and
+   ``skit-tpu-cli plugins list / load / delete`` as child processes (each
+   exits 0), ``# loadtest``:
    ``cli/loadtest.py`` mixed for 30 s (4 oneshot STT workers at a 32-token
    budget, 2 workers cycling live-captions sessions whose gain is tuned
    every 200 ms; every request must succeed, K1 and K3 launch), OTLP pushes
@@ -187,6 +188,21 @@
    (finite), each under the profiler (wall, device time, idle share, peak
    memory, the top kernels) with exactly 64 K1 and 64 of each backward
    kernel.
+
+15b. The learned VAD's trainer and evaluator (``# vad train``, after 15):
+   ``streamkit_tpu_torch/tools/train_vad.py`` from ``init_params(0)``,
+   batch 64 of 48-frame clips, ``VAD_TRAIN_STEPS`` Adam steps on the card,
+   synthetic clips only where the real-speech sample or libopus is absent
+   (a line says which data and why), each step's host ms and peak memory,
+   three steps under the profiler (device ms, idle share, kernels; K1–K3
+   launch 0 times);
+   the same steps on the CPU, each step's loss and the final params within
+   the ``VAD_*`` limits; the card's weights saved with ``save_params`` to a
+   temporary directory re-score ``samples/media/speech_8s.wav`` through
+   ``tools/eval_vad.py`` ``evaluate`` on the card and on the CPU
+   (probabilities within ``VAD_PROB_ATOL``, equal segments); the process's
+   VAD backend, its weights, ``SK_VAD_BACKEND`` and the bundled weights
+   file are as before.
 
 16. The mesh (``# mesh``, last): ``parallel/`` on ``torch.distributed``
    ranks spawned by ``parallel.run_ranks`` (the kernels are built once
@@ -1054,6 +1070,158 @@ def train_phase() -> dict:
         raise AssertionError(f"train large-v3: launches {[r['launches'] for r in f32 + bf16]}, want {want} a step")
     total = {name: sum(r["launches"][name] for r in f32 + bf16) for name in ZERO_LAUNCHES}
     return {"small": small, "f32": f32, "bf16": bf16, "launches": total, "init_s": init_s}
+
+
+# ---------------------------------------------------------------------------
+# 2d. the learned VAD's trainer and evaluator
+# ---------------------------------------------------------------------------
+VAD_TRAIN_STEPS = 24
+VAD_PROFILED = (1, VAD_TRAIN_STEPS // 2, VAD_TRAIN_STEPS - 1)  # the card's steps run under the profiler
+# card against CPU, both f32 (TF32 off): cuBLAS and the CPU's BLAS sum in
+# other orders, and 48 LSTM frames carry each rounding on, so a step's loss
+# agrees to about 1e-6 relative; 1e-4 leaves room for the steps compounding
+VAD_LOSS_RTOL = 1e-4
+# Adam normalises each coordinate's step to about lr: one whose gradient
+# is at rounding level can step either way, so the bound is 2 lr a step;
+# all but a few must agree far closer
+VAD_PARAM_NEAR, VAD_PARAM_NEAR_SHARE = 1e-5, 0.999
+# a probability of the re-scored 8 s sample, card against CPU (250 frames
+# of the same recurrence)
+VAD_PROB_ATOL = 1e-4
+
+
+def vad_train_steps(tv, batches, device: str) -> tuple:
+    """The trainer from ``init_params(0)`` over ``batches`` on ``device`` →
+    (params, per-step rows). On the card every step gives its host ms, peak
+    memory and K1 / K2 / K3 launches (none: the VAD is no kernel of ours);
+    the steps of ``VAD_PROFILED`` run under the profiler (CUDA activity
+    only) for device ms, idle share and kernels: parsing a step's 9,600
+    kernel events takes seconds, so not every step is profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device(device)
+    params, opt = tv.init_training(device)
+    rows = []
+    for it, batch in enumerate(batches):
+        x = tv.to_device(batch, dev)
+        if device != "cuda":
+            t0 = time.monotonic()
+            loss, acc = tv.train_step(params, opt, *x)
+            rows.append({"loss": loss.item(), "acc": acc.item(), "host_ms": (time.monotonic() - t0) * 1e3})
+            continue
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) if it in VAD_PROFILED else contextlib.nullcontext() as prof:
+            t0 = time.monotonic()
+            loss, acc = tv.train_step(params, opt, *x)
+            loss, acc = loss.item(), acc.item()  # waits for the step
+            wall = time.monotonic() - t0
+        row = {"step": it, "loss": loss, "acc": acc, "host_ms": wall * 1e3,
+               "peak_mb": torch.cuda.max_memory_allocated() / 2**20, "launches": read_counts()}
+        if prof is not None:
+            ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            busy = sum(e.time_range.elapsed_us() for e in ks) / 1e3
+            row.update(device_ms=busy, idle_share=max(0.0, 1.0 - busy / (wall * 1e3)), kernels=len(ks))
+        rows.append(row)
+    return params, rows
+
+
+def vad_train_phase() -> dict:
+    """``# vad train``: the port's VAD trainer (``tools/train_vad.py``) from
+    ``init_params(0)``, batch 64 of 48-frame clips, ``VAD_TRAIN_STEPS``
+    steps on the card, then the same steps on the CPU: each step's loss and
+    the final params held within the VAD_* limits. The card's weights are
+    saved with ``save_params`` to a temporary directory and re-score
+    ``samples/media/speech_8s.wav`` through the evaluator's ``evaluate`` on
+    the card and on the CPU: probabilities within ``VAD_PROB_ATOL``, the
+    same ``SpeechSegmenter`` segments. The trainer and the evaluator touch
+    no process-wide VAD state; the phase checks that the backend, its
+    weights, ``SK_VAD_BACKEND`` and the bundled file are as they were."""
+    import hashlib
+    import statistics
+    import tempfile
+
+    from streamkit_tpu_torch.models import silero_vad as sv
+    from streamkit_tpu_torch.ops import vad as V
+    from streamkit_tpu_torch.tools import eval_vad
+    from streamkit_tpu_torch.tools import train_vad as tv
+
+    def bundled_digest() -> str:
+        with open(tv.BUNDLED_WEIGHTS, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    before = (V.vad_backend(), id(V._LEARNED_PARAMS), os.environ.get("SK_VAD_BACKEND"), bundled_digest())
+    real = tv._load_real()  # prints which data and why
+    log(f"# vad train data: {'real speech (' + tv._REAL_SAMPLE + ') and synthetic' if real else 'synthetic only'}")
+    t0 = time.monotonic()
+    batches = [tv.make_dataset(tv.BATCH, seed=it) for it in range(VAD_TRAIN_STEPS)]
+    data_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    cuda_params, cuda_rows = vad_train_steps(tv, batches, "cuda")
+    cuda_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    cpu_params, cpu_rows = vad_train_steps(tv, batches, "cpu")
+    cpu_s = time.monotonic() - t0
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(cuda_rows, cpu_rows))
+    diffs = [(cuda_params[k].detach().cpu() - cpu_params[k].detach()).abs() for k in cpu_params]
+    param_err = max(d.max().item() for d in diffs)
+    near = sum(int((d <= VAD_PARAM_NEAR).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    moved = max((cuda_params[k].detach().cpu() - torch.from_numpy(v)).abs().max().item()
+                for k, v in sv.init_params(0).items())
+    warm, profiled = cuda_rows[1:], [r for r in cuda_rows if "device_ms" in r]
+    report = {
+        "steps": VAD_TRAIN_STEPS, "batch": tv.BATCH, "clip_frames": tv.CLIP_FRAMES, "data": "real+synthetic" if real
+        else "synthetic", "data_s": data_s, "cuda_s": cuda_s, "cpu_s": cpu_s,
+        "losses_cuda": [r["loss"] for r in cuda_rows], "losses_cpu": [r["loss"] for r in cpu_rows],
+        "loss_rel_err": loss_err, "param_max_abs_err": param_err, "params_within_near": near, "moved": moved,
+        "first_step_host_ms": cuda_rows[0]["host_ms"],
+        "step_median": {**{k: statistics.median(r[k] for r in warm) for k in ("host_ms", "peak_mb")},
+                        **{k: statistics.median(r[k] for r in profiled) for k in ("device_ms", "idle_share", "kernels")}},
+        "step_range": {"host_ms": [min(r["host_ms"] for r in warm), max(r["host_ms"] for r in warm)],
+                       **{k: [min(r[k] for r in profiled), max(r[k] for r in profiled)]
+                          for k in ("device_ms", "idle_share", "kernels")}},
+        "profiled": [{k: r[k] for k in ("step", "host_ms", "device_ms", "idle_share", "kernels", "peak_mb")}
+                     for r in profiled],
+        "cpu_step_median_ms": statistics.median(r["host_ms"] for r in cpu_rows[1:]),
+        "launches": {name: sum(r["launches"][name] for r in cuda_rows) for name in ZERO_LAUNCHES},
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vad_trained.npz")
+        sv.save_params(cuda_params, path)
+        with open(os.path.join(SAMPLES, "media", "speech_8s.wav"), "rb") as f:  # 16 kHz mono 16-bit
+            audio = (wav_samples(f.read()) / 32768.0).astype(np.float32)
+        scored = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.monotonic()
+            scored[dev] = eval_vad.evaluate(audio, device=dev, weights=path)
+            scored[dev]["wall_s"] = time.monotonic() - t0
+    prob_err = {b: float(np.abs(scored["cuda"]["backends"][b]["probs"] - scored["cpu"]["backends"][b]["probs"]).max())
+                for b in ("learned", "spectral")}
+    same_segments = all(scored["cuda"]["backends"][b]["segments"] == scored["cpu"]["backends"][b]["segments"]
+                        for b in ("learned", "spectral"))
+    after = (V.vad_backend(), id(V._LEARNED_PARAMS), os.environ.get("SK_VAD_BACKEND"), bundled_digest())
+    report["rescore"] = {
+        "frames": scored["cuda"]["frames"], "prob_max_abs_err": prob_err, "same_segments": same_segments,
+        "segments": {b: scored["cuda"]["backends"][b]["segments"] for b in ("learned", "spectral")},
+        "learned": {k: scored["cuda"]["backends"]["learned"][k] for k in ("loud_decile", "quiet_decile", "over_half")},
+        "recall_by_quintile": scored["cuda"]["recall_by_quintile"],
+        "wall_s": {dev: scored[dev]["wall_s"] for dev in scored},
+    }
+    report["process_state_kept"] = after == before
+    log("# vad train " + json.dumps(report))
+    finite = all(math.isfinite(r["loss"]) for r in cuda_rows + cpu_rows)
+    if not finite or loss_err > VAD_LOSS_RTOL or param_err > 2 * tv.LR * VAD_TRAIN_STEPS \
+            or near < VAD_PARAM_NEAR_SHARE or moved < tv.LR:
+        raise AssertionError(f"vad train: card against CPU out of limits: {report}")
+    if max(prob_err.values()) > VAD_PROB_ATOL or not same_segments:
+        raise AssertionError(f"vad train: re-scored speech_8s.wav differs between card and CPU: {report['rescore']}")
+    if report["launches"] != ZERO_LAUNCHES:
+        raise AssertionError(f"vad train launched kernels of ours: {report['launches']}")
+    if after != before:
+        raise AssertionError(f"vad train changed the process's VAD: {before} -> {after}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -3133,6 +3301,13 @@ async def server_plugins_step(client, base: str, state, post_process) -> dict:
         deletes[runtime] = (r.status, await r.json())
     left = (await (await client.get(base + "/api/v1/plugins")).json())["plugins"]
     env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # a CLI child's start alone: the interpreter, the CLI's imports, --help
+    t0 = time.monotonic()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "streamkit_tpu_torch.cli", "--help", cwd=REPO_DIR, env=env,
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+    await asyncio.wait_for(proc.communicate(), 300)
+    help_s, help_rc = time.monotonic() - t0, proc.returncode
     cli = []
     for args in (["list"], ["load", files["native"]], ["delete", want_kinds["native"]]):
         t0 = time.monotonic()
@@ -3145,9 +3320,12 @@ async def server_plugins_step(client, base: str, state, post_process) -> dict:
     report = {"uploads": uploads, "listed": [(p["kind"], p["runtime"], p["abi_version"]) for p in listed],
               "wall_s": wall, "lines": len(rows), "equal_to_plugins_path": rows == PLUGINS["lines"],
               "encodes": encodes, "launches": counts, "deletes": deletes, "left": left,
-              "cli": [{k: c[k] for k in ("args", "rc", "wall_s")} for c in cli],
+              "cli": [{k: c[k] for k in ("args", "rc", "wall_s")} for c in cli], "cli_help_s": help_s,
               "left_after_cli": (await (await client.get(base + "/api/v1/plugins")).json())["plugins"]}
     log("# server plugins " + json.dumps(report))
+    walls = ", ".join(f"{c['wall_s']:.2f}" for c in cli)
+    log(f"# cli child start: --help {help_s:.2f} s (rc {help_rc}); plugins children {walls} s "
+        "(8.24-11.19 s a child when the CLI imported torch)")
     want_listed = [("plugin::native::gain_cpp", "native", 2), ("plugin::wasm::wgain", "wasm", 1),
                    ("plugin::wasm::gain", "wasm", 1)]
     if (any(uploads[r] != (201, {"kind": k, "description": uploads[r][1].get("description")})
@@ -3161,7 +3339,8 @@ async def server_plugins_step(client, base: str, state, post_process) -> dict:
         raise AssertionError(f"server plugins: lines {rows} != the # plugins requests' {PLUGINS['lines']}")
     if counts != {**ZERO_LAUNCHES, "flash_attention": per * encodes} or encodes == 0:
         raise AssertionError(f"server plugins request launched {counts} for {encodes} encodes")
-    if any(c["rc"] != 0 for c in cli) or "gain_cpp" not in cli[1]["stdout"] or report["left_after_cli"]:
+    if help_rc != 0 or any(c["rc"] != 0 for c in cli) or "gain_cpp" not in cli[1]["stdout"] \
+            or report["left_after_cli"]:
         raise AssertionError(f"skit-tpu-cli plugins: {cli}")
     return report
 
@@ -4233,6 +4412,9 @@ def main() -> int:
     t0 = time.monotonic()
     train = train_phase()
     log(f"# train phase (small f32 card against CPU, large-v3 f32 and bf16 steps) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    vad_train_phase()
+    log(f"# vad train phase (the VAD trainer on the card against the CPU, save, re-score) {time.monotonic() - t0:.1f} s")
     from streamkit_tpu_torch.core import ResourceManager
 
     resources = ResourceManager()  # one model load for both node paths

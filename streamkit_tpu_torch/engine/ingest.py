@@ -19,13 +19,15 @@ at first use (:mod:`..ops._build`); a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import os
+import shutil
 from typing import Optional, Tuple
 
 import numpy as np
 
 from ..ops import _build
 
-__all__ = ["IngestPool", "SOURCE"]
+__all__ = ["IngestPool", "SOURCE", "ingest_available"]
 
 SOURCE = _build.Source("ingest.cpp", "g++")
 
@@ -56,6 +58,14 @@ def _declare(lib) -> None:
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = res, args
+
+
+def ingest_available() -> bool:
+    """Whether :class:`IngestPool` can load here: the shim is built for this
+    revision of ``csrc/ingest.cpp``, or the compiler that builds it is on
+    the path. (The reference checks for its prebuilt ``native/build``
+    library; the port builds its own at first use.)"""
+    return os.path.exists(SOURCE.library()) or shutil.which(os.environ.get("CXX", "g++")) is not None
 
 
 class IngestPool:

@@ -28,6 +28,7 @@ __all__ = [
     "init_state",
     "apply",
     "load_params",
+    "save_params",
 ]
 
 FRAME = 512
@@ -127,6 +128,13 @@ def apply(
         probs.append(torch.sigmoid(logit))
         st = LearnedVadState(h, c, x[..., -CONTEXT:])
     return torch.stack(probs, dim=-1), st
+
+
+def save_params(params, path: str) -> None:
+    """Write ``params`` (numpy arrays or tensors on any device) as an npz
+    that both packages' ``load_params`` read."""
+    np.savez(path, **{k: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+                      for k, v in params.items()})
 
 
 def load_params(path: str) -> Dict[str, np.ndarray]:

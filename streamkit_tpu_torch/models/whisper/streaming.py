@@ -98,6 +98,7 @@ CHUNK_SAMPLES = CHUNK_MEL * HOP_LENGTH  # 2560
 # half window = 520, rounded up to 560 for hop alignment.
 LEFT_CTX = 560
 RIGHT_CTX = 200  # mel frame t0+16 reads 200 samples past the chunk end
+GATHER = LEFT_CTX + CHUNK_SAMPLES + RIGHT_CTX  # 3320: the samples one chunk's mel reads
 
 # meta row of the fused step: per-row scalars, then the decoder prefix
 META_COLS = 7  # slot, stream, wpos, cstart, n_req, do_dec, do_reset

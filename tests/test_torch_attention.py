@@ -13,6 +13,8 @@ import jax.numpy as jnp
 from streamkit_tpu.ops import attention as jattn
 from streamkit_tpu_torch.ops import attention as tattn
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 
 def _qkv(seed, b, h, t, d, dtype=np.float32):
     rng = np.random.RandomState(seed)

@@ -23,6 +23,8 @@ from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as l
 from streamkit_tpu.ops import attention as jattn
 from streamkit_tpu_torch.ops import attention as tattn
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 BLOCK = 128
 # every block of the forward and of both backward kernels (dK/dV, dQ)
 BLOCKS = BlockSizes(

@@ -19,6 +19,8 @@ from streamkit_tpu_torch.engine import audio_ring as tring
 from streamkit_tpu_torch.ops import vad as tvad
 from streamkit_tpu_torch.ops.vad import VAD_FRAME
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 
 def _blocks(rng, n_blocks, block_frames):
     return [rng.randn(block_frames, VAD_FRAME).astype(np.float32) * 0.1 for _ in range(n_blocks)]

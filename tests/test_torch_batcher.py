@@ -10,6 +10,8 @@ import torch
 
 from streamkit_tpu_torch.engine.batcher import DeviceBatcher
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 
 def test_batches_concurrent_submissions():
     async def main():

@@ -7,8 +7,11 @@ is kept beside it. No compiler runs here."""
 import os
 
 import pytest
+import torch
 
 from streamkit_tpu_torch.ops import _build
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 PTXAS = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_Z4fwd1Pf' for 'sm_90a'

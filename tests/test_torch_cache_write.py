@@ -14,6 +14,8 @@ import jax.numpy as jnp
 from streamkit_tpu.ops import cache_write as jcw
 from streamkit_tpu_torch.ops import cache_write as tcw
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 
 def _inputs(shape_cache, c, dtype, seed=0):
     rng = np.random.RandomState(seed)

@@ -30,6 +30,7 @@ import wave
 
 import numpy as np
 import pytest
+import torch
 
 import streamkit_tpu.api.gen_ts_types as jax_gen
 import streamkit_tpu.cli.client as jax_client
@@ -43,6 +44,8 @@ import streamkit_tpu_torch.moq.relay as torch_relay
 from streamkit_tpu_torch.cli import main as torch_cli
 from streamkit_tpu_torch.server import ServerConfig, create_app
 from streamkit_tpu_torch.server import http as web
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = sorted(glob.glob(os.path.join(REPO, "samples", "loadtest", "*.toml")))

@@ -16,10 +16,13 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from streamkit_tpu.nodes.containers import ogg as jogg
 from streamkit_tpu_torch.nodes.codecs import opus_available
 from streamkit_tpu_torch.nodes.containers import ogg as togg
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEECH_OGG = os.path.join(REPO, "samples", "media", "speech_30s.ogg")

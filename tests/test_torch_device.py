@@ -21,6 +21,8 @@ from streamkit_tpu_torch.device import resolve_device
 from streamkit_tpu_torch.engine import audio_ring
 from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS, WhisperConfig, get_stream_table, seeded_params
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 TINY = WhisperConfig(n_mels=80, n_audio_ctx=64, n_audio_state=32, n_audio_head=2, n_audio_layer=1, n_vocab=51865,
                      n_text_ctx=16, n_text_state=32, n_text_head=2, n_text_layer=1)
 

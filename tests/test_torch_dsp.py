@@ -21,6 +21,8 @@ from streamkit_tpu.ops import resample as jrs
 from streamkit_tpu_torch.ops import dsp as tdsp
 from streamkit_tpu_torch.ops import resample as trs
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 GOLD = os.path.join(os.path.dirname(__file__), "golden", "dsp_golden.npz")
 
 

@@ -22,6 +22,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import streamkit_tpu.core as jax_core
 import streamkit_tpu.nodes.containers.webm as jax_webm
@@ -35,6 +36,8 @@ sys.path.insert(0, REPO)  # chip_smoke.py's FLAC encoder
 
 from _torch_native import point_jax_av  # noqa: E402
 from chip_smoke import flac_verbatim  # noqa: E402
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 async def _drive(core, node, packets):
     in_ch, out_ch = core.Channel(4096), core.Channel(4096)

@@ -26,11 +26,14 @@ import time
 import aiohttp
 import numpy as np
 from aiohttp import web as aioweb
+import torch
 
 import streamkit_tpu_torch.server.app as torch_app
 from streamkit_tpu_torch.server import http
 from test_server import DOUBLE_VOLUME_YAML, make_wav
 from test_torch_server import configs, fetch, same, serve
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -10,6 +10,10 @@ import subprocess
 import sys
 import textwrap
 
+import torch
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = textwrap.dedent(
@@ -157,6 +161,10 @@ _SCRIPT = textwrap.dedent(
     import streamkit_tpu_torch.utils.speechsynth
     import streamkit_tpu_torch.utils.tracing
     import streamkit_tpu_torch.utils.checkpoint
+    import streamkit_tpu_torch.utils.realspeech
+    import streamkit_tpu_torch.tools
+    import streamkit_tpu_torch.tools.eval_vad
+    import streamkit_tpu_torch.tools.train_vad
     new = set(sys.modules) - before
     bad = sorted(
         m for m in new
@@ -197,6 +205,8 @@ _SCRIPT = textwrap.dedent(
         from streamkit_tpu_torch.nodes.ml.sensevoice_node import SenseVoiceNode
         from streamkit_tpu_torch.parallel import make_mesh, run_ranks, train_state_from_numpy
         from streamkit_tpu_torch.parallel.dryrun import dryrun_multichip
+        from streamkit_tpu_torch.tools import eval_vad, train_vad
+        import numpy as np
         small = dict(d_model=8, encoder_layers=1, decoder_layers=1, heads=2, ffn_dim=8, max_positions=8)
 
         for name, call in [
@@ -240,6 +250,9 @@ _SCRIPT = textwrap.dedent(
             ("make_mesh", lambda: make_mesh()),
             ("run_ranks", lambda: run_ranks(print, 1)),
             ("dryrun_multichip", lambda: dryrun_multichip(2)),
+            ("train_vad.init_training", lambda: train_vad.init_training()),
+            ("train_vad.main", lambda: train_vad.main(out="unused.npz")),
+            ("eval_vad.evaluate", lambda: eval_vad.evaluate(np.zeros(4096, np.float32))),
         ]:
             try:
                 call()
@@ -269,6 +282,109 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK"), proc.stdout
+
+
+_CLI_WITHOUT_TORCH = textwrap.dedent(
+    """
+    import sys, time
+    t0 = time.monotonic()
+    import streamkit_tpu_torch.cli.main as cli
+    try:
+        cli.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    loaded = sorted(m for m in ("torch", "streamkit_tpu_torch.server.app") if m in sys.modules)
+    assert not loaded, loaded
+    print(f"OK {time.monotonic() - t0:.3f}")
+    """
+)
+
+
+def test_cli_starts_without_torch():
+    """``import streamkit_tpu_torch.cli.main`` and ``main(["--help"])`` load
+    neither torch nor the server's app: the client needs only
+    ``server/http.py``, and ``server/__init__.py`` resolves its names at
+    first use."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_WITHOUT_TORCH], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "OK" in proc.stdout.splitlines()[-1], proc.stdout
+    assert "usage: skit-tpu-cli" in proc.stdout, proc.stdout
+
+
+def test_server_exports_resolve_lazily():
+    """The server package keeps its exports, each the object its module
+    defines, and names nothing else."""
+    import pytest
+
+    import streamkit_tpu_torch.server as server
+    from streamkit_tpu_torch.server import app, config, permissions, sessions
+
+    homes = {"AppState": app, "create_app": app, "run_server": app, "ServerConfig": config,
+             "load_config": config, "Permissions": permissions, "RoleStore": permissions,
+             "Session": sessions, "SessionManager": sessions}
+    assert sorted(server.__all__) == sorted(homes)
+    for name, module in homes.items():
+        assert getattr(server, name) is getattr(module, name)
+    with pytest.raises(AttributeError):
+        server.no_such_name
+
+
+def _public_names(path: str) -> set:
+    """Top-level functions, classes and assigned names not starting with
+    ``_``, read from the source (nothing is imported)."""
+    import ast
+
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {e.id for t in node.targets for e in ast.walk(t) if isinstance(e, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+# the JAX package's public names the port does not carry, each recorded in
+# ROADMAP.md §3 "Public names the port does not carry"
+SURFACE_EXCEPTIONS = {
+    ("ops/attention.py", "use_flash_attention"),
+    ("ops/attention.py", "BLOCK_Q"),
+    ("ops/attention.py", "BLOCK_K"),
+    ("nodes/audio/filters.py", "VALID_OPUS_FRAME_SIZES"),
+}
+
+
+def test_every_jax_module_and_public_name_has_its_counterpart():
+    jax_root = os.path.join(REPO, "streamkit_tpu")
+    port_root = os.path.join(REPO, "streamkit_tpu_torch")
+    missing_files, missing_names = [], set()
+    for root, _, names in os.walk(jax_root):
+        for n in names:
+            if not n.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(root, n), jax_root).replace(os.sep, "/")
+            port = os.path.join(port_root, rel)
+            if not os.path.exists(port):
+                missing_files.append(rel)
+                continue
+            missing_names |= {(rel, name) for name in _public_names(os.path.join(root, n)) - _public_names(port)}
+    assert not missing_files, missing_files
+    assert missing_names == SURFACE_EXCEPTIONS, (sorted(missing_names - SURFACE_EXCEPTIONS),
+                                                 sorted(SURFACE_EXCEPTIONS - missing_names))
+    with open(os.path.join(REPO, "ROADMAP.md"), encoding="utf-8") as f:
+        roadmap = f.read()
+    section = roadmap.split("### 3.", 1)[1].split("\n## ", 1)[0]
+    recorded = section.split("**Public names the port does not carry", 1)[1]
+    for rel, name in SURFACE_EXCEPTIONS:
+        assert f"`{name}`" in recorded and rel in recorded, (rel, name)
 
 
 _NO_YAML = textwrap.dedent(

@@ -9,9 +9,12 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
-from streamkit_tpu_torch.engine.ingest import SOURCE, IngestPool
+from streamkit_tpu_torch.engine.ingest import SOURCE, IngestPool, ingest_available
 from streamkit_tpu_torch.ops import _build
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 BLOCK = 4096  # 8 VAD frames x 512 samples = 256 ms @16 kHz
 
@@ -20,6 +23,16 @@ def test_shim_builds_from_the_ports_source():
     lib = _build.build(SOURCE)
     assert os.path.exists(lib) and os.path.dirname(lib) == _build.BUILD_DIR
     assert SOURCE.path.endswith(os.path.join("streamkit_tpu_torch", "csrc", "ingest.cpp"))
+
+
+def test_ingest_available_means_the_pool_loads(monkeypatch, tmp_path):
+    """Where g++ is found (this image) the shim builds, so a pool opens; with
+    no compiler and no built library for this revision there is none."""
+    assert ingest_available()
+    IngestPool(1, BLOCK).close()
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    assert not ingest_available()
 
 
 @pytest.mark.parametrize("piece", [1, 777, BLOCK, 3 * BLOCK])

@@ -7,8 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from streamkit_tpu_torch.utils import jax_prng
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 SHAPES = [(7,), (178, 512), (5, 512, 512), (1, 256, 80)]
 

@@ -13,6 +13,8 @@ from streamkit_tpu.ops import mel as jmel
 from streamkit_tpu_torch.ops import dsp as tdsp
 from streamkit_tpu_torch.ops import mel as tmel
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 ATOL = 1e-4  # f32 DFT/mel matmuls in a different summation order
 
 

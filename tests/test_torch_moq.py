@@ -15,6 +15,7 @@ import json
 import aiohttp
 import numpy as np
 import pytest
+import torch
 
 import streamkit_tpu.core.moq_gateway as jax_gateway
 import streamkit_tpu.moq as jax_moq
@@ -23,6 +24,8 @@ import streamkit_tpu_torch.moq as torch_moq
 from streamkit_tpu_torch.nodes.codecs import opus_available
 from test_moq import MOQ_YAML
 from test_torch_server import configs, fetch, same, serve
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 GATEWAYS = {"jax": jax_gateway, "torch": torch_gateway}
 RELAYS = {"jax": jax_moq, "torch": torch_moq}

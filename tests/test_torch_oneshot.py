@@ -13,6 +13,7 @@ import wave
 import numpy as np
 import pytest
 import yaml
+import torch
 
 import streamkit_tpu.api as jax_api
 import streamkit_tpu.core as jax_core
@@ -22,6 +23,8 @@ import streamkit_tpu_torch.api as torch_api
 import streamkit_tpu_torch.core as torch_core
 import streamkit_tpu_torch.engine as torch_engine
 import streamkit_tpu_torch.nodes as torch_nodes
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = {

@@ -10,6 +10,7 @@ import asyncio
 import json
 
 import pytest
+import torch
 
 import streamkit_tpu.server as jax_server
 import streamkit_tpu.server.otlp as jax_otlp
@@ -18,6 +19,8 @@ import streamkit_tpu_torch.server as torch_server
 import streamkit_tpu_torch.server.otlp as torch_otlp
 import streamkit_tpu_torch.utils.tracing as torch_tracing
 from streamkit_tpu_torch.server import http as web
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 
 @pytest.fixture(autouse=True)

@@ -36,6 +36,8 @@ from streamkit_tpu_torch.parallel import (
 from streamkit_tpu_torch.parallel.dryrun import dryrun_multichip
 from streamkit_tpu_torch.utils.checkpoint import load_params, load_train_state, save_params, save_train_state
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 DIMS = dict(n_audio_ctx=64, n_audio_state=64, n_audio_head=4, n_audio_layer=2, n_vocab=512, n_text_ctx=16,
             n_text_state=64, n_text_head=4, n_text_layer=2)
 TINY = WhisperConfig(**DIMS)

@@ -27,6 +27,8 @@ from streamkit_tpu_torch.parallel import make_mesh, run_ranks
 from streamkit_tpu_torch.parallel.serving import gather_rows, serving_input_shardings, shard_serving_state
 from test_torch_parallel import affine_random
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 DIMS = dict(n_mels=80, n_audio_ctx=64, n_audio_state=64, n_audio_head=4, n_audio_layer=2, n_vocab=256,
             n_text_ctx=32, n_text_state=64, n_text_head=4, n_text_layer=2)
 CFG = WhisperConfig(**DIMS)

@@ -28,6 +28,7 @@ import tempfile
 import aiohttp
 import numpy as np
 import pytest
+import torch
 
 import streamkit_tpu.api as jax_api
 import streamkit_tpu.cli.loadtest as jax_lt
@@ -52,6 +53,8 @@ from streamkit_tpu_torch.plugins.component_asm import build_gain_component
 from test_server import make_wav
 from test_torch_server import configs as server_configs
 from test_torch_server import same, serve
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 PACKAGES = ("jax", "torch")
 WASM = {"jax": jax_wasm, "torch": torch_wasm}

@@ -28,6 +28,7 @@ from cryptography.hazmat.primitives.asymmetric import ec
 from cryptography.hazmat.primitives.asymmetric.x25519 import X25519PrivateKey, X25519PublicKey
 from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
 from cryptography.hazmat.primitives.ciphers.aead import AESGCM
+import torch
 
 import streamkit_tpu.quic.connection as jax_connection
 import streamkit_tpu.quic.crypto as jax_crypto
@@ -65,6 +66,8 @@ from streamkit_tpu_torch.quic.tls import TlsSession, TransportParams, generate_s
 import streamkit_tpu_torch.quic.connection as torch_connection
 import streamkit_tpu_torch.quic.endpoint as torch_endpoint
 import streamkit_tpu_torch.quic.tls as torch_tls
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 STACKS = {
     "jax": (jax_endpoint, jax_tls, jax_connection),

@@ -24,6 +24,7 @@ import json
 import types
 
 import pytest
+import torch
 
 import streamkit_tpu.core as jax_core
 import streamkit_tpu.nodes.core_nodes.script as jax_script
@@ -34,6 +35,8 @@ import streamkit_tpu_torch.utils.mjs as torch_mjs
 from streamkit_tpu_torch.server import http as web
 
 import test_mjs as ref_mjs
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 PACKAGES = {"jax": (jax_core, jax_script), "torch": (torch_core, torch_script)}
 BUDGET_MS = 10_000  # a finishing script's per-packet budget

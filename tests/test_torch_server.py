@@ -19,6 +19,7 @@ import aiohttp
 import numpy as np
 import pytest
 from aiohttp.test_utils import TestServer
+import torch
 
 import streamkit_tpu.server as jax_server
 import streamkit_tpu_torch.server as torch_server
@@ -26,6 +27,8 @@ from streamkit_tpu_torch.server.http import AppRunner
 from _torch_native import point_jax_av
 from test_server import DOUBLE_VOLUME_YAML, make_wav
 from test_torch_whisper_node import _json_key, hf_dir, speech_wav, stt_doc  # noqa: F401  (module fixture)
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 PACKAGES = ("jax", "torch")
 

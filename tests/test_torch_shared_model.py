@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import torch.distributed as dist
+import torch
 
 from streamkit_tpu_torch.api import compile_pipeline_dict
 from streamkit_tpu_torch.core import NodeRegistry, ResourceManager
@@ -26,6 +27,8 @@ from streamkit_tpu_torch.engine.stt_serving import SttServingEngine
 from streamkit_tpu_torch.nodes import register_nodes
 from streamkit_tpu_torch.parallel import make_mesh, run_ranks
 from streamkit_tpu_torch.utils.speechsynth import synth_speech_with_plan
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 SR = 16_000
 

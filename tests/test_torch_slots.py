@@ -12,6 +12,8 @@ import torch
 from streamkit_tpu_torch.engine.batcher import DeviceBatcher
 from streamkit_tpu_torch.engine.slots import SlotTable
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 
 def _counter_row():
     return {"count": torch.zeros((), dtype=torch.float32), "hist": torch.zeros((4,), dtype=torch.float32)}

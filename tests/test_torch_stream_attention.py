@@ -14,6 +14,8 @@ import jax.numpy as jnp
 from streamkit_tpu.ops import stream_attention as jsa
 from streamkit_tpu_torch.ops import stream_attention as tsa
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 
 def _case(B=4, H=4, c=16, hd=64, T=256, seed=0):
     rng = np.random.default_rng(seed)

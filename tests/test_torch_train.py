@@ -40,6 +40,8 @@ from streamkit_tpu_torch.utils.checkpoint import (
     save_train_state,
 )
 
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
+
 DIMS = dict(n_mels=80, n_audio_ctx=256, n_audio_state=128, n_audio_head=2, n_audio_layer=2, n_vocab=512,
             n_text_ctx=256, n_text_state=128, n_text_head=2, n_text_layer=2)
 CFG = WhisperConfig(**DIMS)

@@ -20,6 +20,7 @@ import tempfile
 
 import numpy as np
 import pytest
+import torch
 
 import streamkit_tpu.core as jax_core
 import streamkit_tpu.plugins.component as jax_component
@@ -31,6 +32,8 @@ import streamkit_tpu_torch.plugins.component_asm as torch_asm
 import streamkit_tpu_torch.plugins.wasm as torch_wasm
 from _torch_native import point_jax_wasm
 from test_torch_plugins import both, call, file_form, on_both, same
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 COMPONENT = {"jax": jax_component, "torch": torch_component}
 ASM = {"jax": jax_asm, "torch": torch_asm}

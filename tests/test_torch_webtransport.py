@@ -26,6 +26,7 @@ import wave
 
 import numpy as np
 import pytest
+import torch
 
 import streamkit_tpu.moq.lite as jax_lite
 import streamkit_tpu.moq.lite_session as jax_lite_session
@@ -49,6 +50,8 @@ from streamkit_tpu_torch.quic.tls import generate_self_signed
 from streamkit_tpu_torch.server import ServerConfig, create_app
 from streamkit_tpu_torch.server.http import AppRunner, ClientSession
 from test_webtransport_moq import PEER_YAML
+
+torch.set_num_threads(2)  # pytest runs files in parallel workers: leave cores to the others
 
 needs_opus = pytest.mark.skipif(not opus_available(), reason="libopus does not load here")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "moq_vectors.json")

@@ -390,3 +390,11 @@ def test_concurrent_steps_keep_snapshots_and_counts(pair):
     for row in range(S):  # every row's audio landed in order
         got = ring._ring[row, : want.size].numpy().astype(np.float32) / 32768.0
         np.testing.assert_allclose(got, want, atol=1 / 32768.0 + 1e-6)
+
+
+def test_chunk_geometry_constants_match_jax():
+    """The chunk's sample counts, ``GATHER`` (the samples one chunk's mel
+    reads) among them, are the reference's."""
+    for name in ("CHUNK_POS", "CHUNK_MEL", "CHUNK_SAMPLES", "LEFT_CTX", "RIGHT_CTX", "GATHER"):
+        assert getattr(ts, name) == getattr(js, name), name
+    assert ts.GATHER == 3320
