@@ -1,0 +1,17 @@
+# SPDX-License-Identifier: Apache-2.0
+"""K3 (history attention): its least time from operations and bytes at the
+calls' shapes (portbench/roofline/k3.py) over its device time, in the fused
+calls wholly in the trace, in percent."""
+
+META = {
+    "unit": "%",
+    "better": "higher",
+    "source": "device_trace",
+    "layer": "ops/stream_attention.py (K3)",
+    "moves": "device_ms_per_audio_s",
+}
+
+
+def read(rec):
+    k = (rec.get("trace") or {}).get("k3")
+    return 100.0 * k["least_s"] / k["device_s"] if k and k["device_s"] > 0 else None
