@@ -1638,13 +1638,42 @@ def stream_context_phase():
 async def run_engine(final_mode: str, n_sessions: int, speech_s: float, seed0: int, mesh=None,
                      model_size: str = "large-v3", dtype: str = "bfloat16", resources=None):
     from streamkit_tpu_torch.engine import SttServingEngine
-    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+    from streamkit_tpu_torch.utils.tracing import get_tracer
 
     eng = SttServingEngine(model_size=model_size, dtype=dtype, max_sessions=n_sessions,
                            final_mode=final_mode, device="cuda", mesh=mesh, resources=resources)
     t0 = time.monotonic()
     await eng.start()
     t_start = time.monotonic() - t0
+    # the fused calls' walls: the batcher's call spans of the stream kind
+    tracer = get_tracer()
+    tracer.drain()
+    tracer.max_buffered, dropped0 = max(tracer.max_buffered, 1 << 18), tracer.dropped
+    tracer.enable()
+    try:
+        events, t_serve = await serve_sessions(eng, n_sessions, speech_s, seed0)
+    finally:
+        tracer.disable()
+    call_walls = [(sp.end_ns - sp.start_ns) / 1e9 for sp in tracer.drain()
+                  if sp.name == "batcher.call" and sp.attributes["kind"] == eng._sstep_kind]
+    if tracer.dropped != dropped0:
+        raise AssertionError(f"the tracer dropped {tracer.dropped - dropped0} spans of the engine run")
+    stats = eng.batcher.stats()
+    out = dict(mode=final_mode, sessions=n_sessions, start_s=t_start, serve_s=t_serve, stats=stats,
+               finals_stream=eng.finals_stream, finals_fallback=eng.finals_fallback, sstep_kind=eng._sstep_kind,
+               call_walls=call_walls, mesh_calls=eng.mesh_calls,
+               rows_held=eng._tbl.max_slots - len(eng._tbl._free))
+    del eng
+    torch.cuda.empty_cache()
+    return events, out
+
+
+async def serve_sessions(eng, n_sessions: int, speech_s: float, seed0: int):
+    """Feed ``n_sessions`` sessions of synthetic speech at 10x real time
+    until every block is served, then close them and stop the engine →
+    (events by session, serve seconds)."""
+    from streamkit_tpu_torch.utils.speechsynth import synth_speech
+
     events = {i: [] for i in range(n_sessions)}
     sids = [eng.open_session(lambda ev, i=i: events[i].append(ev)) for i in range(n_sessions)]
     audio = [np.concatenate([synth_speech(speech_s, seed=seed0 + i), np.zeros(SR, np.float32)])
@@ -1665,14 +1694,7 @@ async def run_engine(final_mode: str, n_sessions: int, speech_s: float, seed0: i
     for sid in sids:
         eng.close_session(sid)
     await eng.stop()
-    stats = eng.batcher.stats()
-    out = dict(mode=final_mode, sessions=n_sessions, start_s=t_start, serve_s=t_serve, stats=stats,
-               finals_stream=eng.finals_stream, finals_fallback=eng.finals_fallback, sstep_kind=eng._sstep_kind,
-               trace_calls=eng.trace_calls, mesh_calls=eng.mesh_calls,
-               rows_held=eng._tbl.max_slots - len(eng._tbl._free))
-    del eng
-    torch.cuda.empty_cache()
-    return events, out
+    return events, t_serve
 
 
 def check_events(events, mode):
@@ -1693,7 +1715,6 @@ def live_partials_path(resources, cfg_layers: int = 32):
     """Path 4, both engines on ``resources``, which the ``WhisperNode``
     paths filled: the engines take that model (one build of large-v3, not
     two). Returns the launch counts of its run."""
-    os.environ["SK_STT_TRACE"] = "1"  # per-call wall times of the fused step
     builds = resources.misses
     reset_counts()  # counts from here to the end of this path
     t0 = time.monotonic()
@@ -1718,7 +1739,7 @@ def live_partials_path(resources, cfg_layers: int = 32):
         # an exact-final ring decode of >= 8 s has >= 256 encoder positions: K1
         flash_encodes += sum(v["calls"] for k, v in kinds.items()
                              if k.startswith("whisper_ring:") and int(k.rsplit(":", 1)[1]) >= 8 * SR)
-        walls = [c[3] - c[0] for c in out["trace_calls"]]
+        walls = out["call_walls"]
         log(f"# {out['mode']} engine " + json.dumps({
             "start_s": out["start_s"], "serve_s": out["serve_s"], "fused_calls": step["calls"],
             "fused_items": step["items"], "fused_mean_batch": step["items"] / max(step["calls"], 1),
@@ -4217,15 +4238,14 @@ def mesh_engine(mesh, model_size: str, dtype: str, n_sessions: int, speech_s: fl
     reset_counts()
     tp_before = dict(collectives)
     if dist.get_rank() == 0:
-        with knobs(SK_STT_TRACE=1):  # per-call wall times of the fused step
-            events, out = asyncio.run(run_engine("stream", n_sessions, speech_s, seed0=300, mesh=mesh,
-                                                 model_size=model_size, dtype=dtype))
+        events, out = asyncio.run(run_engine("stream", n_sessions, speech_s, seed0=300, mesh=mesh,
+                                             model_size=model_size, dtype=dtype))
         check_events(events, f"mesh {model_size}")
         calls = out["mesh_calls"]
         report = {"fused_calls": out["stats"]["kinds"][out["sstep_kind"]]["calls"], "rows_held": out["rows_held"],
                   "serve_s": out["serve_s"], "start_s": out["start_s"], "finals_stream": out["finals_stream"],
                   "finals_fallback": out["finals_fallback"],
-                  "fused_call_ms_median": 1e3 * float(np.median([c[3] - c[0] for c in out["trace_calls"]]))}
+                  "fused_call_ms_median": 1e3 * float(np.median(out["call_walls"]))}
         sstep = out["sstep_kind"]
     else:
         eng = SttServingEngine(model_size=model_size, dtype=dtype, max_sessions=n_sessions, final_mode="stream",

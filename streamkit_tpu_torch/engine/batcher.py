@@ -7,9 +7,16 @@ process-wide batcher which
 * groups submissions by ``(kind, input shapes)``,
 * ticks on a micro-batch cadence (default 5 ms) or fires early when a group
   reaches ``max_batch`` (or its ``expected`` size),
-* stacks inputs to ``[B, ...]`` on the batcher's device, runs ONE call in an
-  executor thread, synchronises the device once, and scatters the per-item
+* stacks inputs to ``[B, ...]`` on the batcher's device and runs ONE call in
+  an executor thread, synchronises the device once, and scatters the per-item
   results (host numpy) back to the awaiting nodes.
+
+Spans (when the process tracer is on, :mod:`..utils.tracing`): per device
+call a ``batcher.wait`` (from the oldest item's submit to the call's start)
+and a ``batcher.call`` (from stacking to the scattered results, with the
+executor thread's and the process's CPU milliseconds over the call), current
+in the executor thread so the call's own spans are its children. The per-kind
+queue wait is counted whether or not spans are on (``kind_wait_s``).
 
 Correctness contract: registered functions must be batch-invariant (row i of
 the batched result equals the unbatched computation).
@@ -18,6 +25,7 @@ the batched result equals the unbatched computation).
 from __future__ import annotations
 
 import asyncio
+import itertools
 import logging
 import time
 from collections import defaultdict
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.tracing import NOOP_SPAN, get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -96,6 +105,12 @@ class DeviceBatcher:
         self.batched_items = 0
         # per-kind: [calls, items, total_dispatch_wall_s]
         self.kind_stats: Dict[str, list] = defaultdict(lambda: [0, 0, 0.0])
+        # per-kind queue wait: seconds summed over the items of the kind's
+        # calls, each from its submit to the start of its call
+        self.kind_wait_s: Dict[str, float] = defaultdict(float)
+        # device calls numbered in the order they start (``batcher.call``'s
+        # ``seq``)
+        self._dispatch_seq = itertools.count()
 
     # -- registration --------------------------------------------------------
     def register(
@@ -235,40 +250,64 @@ class DeviceBatcher:
             padded = kind.pad_to
         else:
             padded = 1 << (n - 1).bit_length() if n > 1 else 1
-        rows = items + [items[-1]] * (padded - n)
-        stacked = tuple(
-            np.stack([it.inputs[j] for it in rows]) for j in range(len(items[0].inputs))
-        )
-        if not kind.host_inputs:
-            stacked = tuple(torch.as_tensor(a, device=self.device) for a in stacked)
         self.device_calls += 1
-        self.batched_items += len(items)
+        self.batched_items += n
+        tracer = get_tracer()
+        call = NOOP_SPAN
 
         def run_batch():
-            out = kind.fn(*stacked)
-            if not isinstance(out, tuple):
-                out = (out,)
-            # one synchronisation for the whole call, then the host copies
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            return tuple(_to_host(o) for o in out)
+            nonlocal call
+            # the items' queue wait ends here: the gather hold, the tick and
+            # the executor hand-over
+            t_run = time.monotonic()
+            wait_s = sum(t_run - it.t for it in items)
+            seq = next(self._dispatch_seq)
+            if tracer.enabled:
+                call = tracer.span("batcher.call", {"kind": kind.name, "rows": n, "padded": padded, "seq": seq})
+                oldest = min(it.t for it in items)
+                tracer.record("batcher.wait", call.start_ns - int((t_run - oldest) * 1e9), call.start_ns,
+                              {"kind": kind.name, "rows": n, "seq": seq})
+                cpu0 = (time.thread_time_ns(), time.process_time_ns())
+            with call.scope():
+                rows = items + [items[-1]] * (padded - n)
+                stacked = tuple(np.stack([it.inputs[j] for it in rows]) for j in range(len(items[0].inputs)))
+                if not kind.host_inputs:
+                    stacked = tuple(torch.as_tensor(a, device=self.device) for a in stacked)
+                out = kind.fn(*stacked)
+                if not isinstance(out, tuple):
+                    out = (out,)
+                # one synchronisation for the whole call, then the host copies
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                outputs = tuple(_to_host(o) for o in out)
+            if call is not NOOP_SPAN:
+                # this thread's and the process's CPU over the call: wall
+                # beyond the thread's CPU waited (the GIL, the device, a
+                # core); beyond the process's too, no thread of it ran
+                call.set_attribute("cpu_ms", (time.thread_time_ns() - cpu0[0]) / 1e6)
+                call.set_attribute("proc_cpu_ms", (time.process_time_ns() - cpu0[1]) / 1e6)
+            return outputs, wait_s
 
         t0 = time.monotonic()
         try:
-            outputs = await loop.run_in_executor(None, run_batch)
+            outputs, wait_s = await loop.run_in_executor(None, run_batch)
         except Exception as e:  # noqa: BLE001 — propagate to every waiter
+            call.fail(e)
+            call.end()
             for it in items:
                 if not it.future.done():
                     it.future.set_exception(e)
             return
         ks = self.kind_stats[kind.name]
         ks[0] += 1
-        ks[1] += len(items)
+        ks[1] += n
         ks[2] += time.monotonic() - t0
+        self.kind_wait_s[kind.name] += wait_s
         for idx, it in enumerate(items):
             row = tuple(o[idx] for o in outputs)
             if not it.future.done():
                 it.future.set_result(row if len(row) > 1 else row[0])
+        call.end()
 
     # -- stats ------------------------------------------------------------------
     def stats(self) -> dict:
@@ -278,7 +317,8 @@ class DeviceBatcher:
             "batched_items": self.batched_items,
             "mean_batch": (self.batched_items / self.device_calls) if self.device_calls else 0.0,
             "kinds": {
-                k: {"calls": v[0], "items": v[1], "dispatch_s": round(v[2], 2)}
+                k: {"calls": v[0], "items": v[1], "dispatch_s": round(v[2], 2),
+                    "queue_s": round(self.kind_wait_s[k], 2)}
                 for k, v in sorted(self.kind_stats.items())
             },
         }

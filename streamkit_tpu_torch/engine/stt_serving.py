@@ -17,6 +17,15 @@ model. Per VAD block and session:
   (:class:`~..nodes.ml.vad_node.SpeechSegmenter`), cursor planning for the
   fused step, and event emission.
 
+Spans (when the process tracer is on, :mod:`..utils.tracing`): ``stt.session``
+over each session worker's life, the parent of that session's
+``stt.plan`` (planning and submitting a block's fused step),
+``stt.finish`` (its segmenter and events) and ``stt.final_exact`` (an
+exact-final ring decode's await); ``stt.drain`` over each drain iteration
+that returned blocks, from the ingest pool's executor round trip through
+routing. The fused call's own spans are the batcher's (``batcher.wait``,
+``batcher.call``) and the step's (``stream.*``).
+
 Finals come in two modes:
 
 * ``final_mode="stream"``: the continuation decode has consumed the
@@ -64,6 +73,7 @@ from ..models.whisper.decode import transcribe_ring
 from ..models.whisper.streaming import CHUNK_POS, CHUNK_SAMPLES, RIGHT_CTX, get_stream_table
 from ..nodes.ml.vad_node import SpeechSegmenter
 from ..ops.vad import VAD_FRAME
+from ..utils.tracing import NOOP_SPAN, get_tracer, now_ns
 from .audio_ring import get_audio_ring
 from .batcher import DeviceBatcher
 from .ingest import IngestPool
@@ -102,6 +112,9 @@ class _Session:
     # close_session was called: late blocks must not reach the device, since
     # the worker frees this session's ring and table slots on exit
     closing: bool = False
+    # the worker's ``stt.session`` span: the parent of this session's block
+    # spans wherever they run
+    span: object = NOOP_SPAN
 
 
 class SttServingEngine:
@@ -174,11 +187,7 @@ class SttServingEngine:
         # group submit: the drain loop plans and submits a whole co-paced
         # cohort's stream steps in one synchronous sweep
         self._group_submit = os.environ.get("SK_STREAM_GROUP_SUBMIT", "1") == "1"
-        # SK_STT_TRACE=1: per-block (sid, arrival, dequeue, submit, return)
-        # and per-call (start, rows, fetch, end) timestamps
-        trace = os.environ.get("SK_STT_TRACE") == "1"
-        self.trace_blocks: Optional[list] = [] if trace else None
-        self.trace_calls: Optional[list] = [] if trace else None
+        self._tracer = get_tracer()
         # finals served from the stream table vs exact-decode fallbacks
         self.finals_stream = 0
         self.finals_fallback = 0
@@ -244,8 +253,7 @@ class SttServingEngine:
         self._n_chunks = max(2, -(-self.block_samples // CHUNK_SAMPLES))
         batched_sstep = self._device_call(
             self._sstep_kind,
-            tbl.identity_step_fn(params, ring, ring.trash_slot(), self._stream_steps, n_chunks=self._n_chunks,
-                                 trace_calls=self.trace_calls),
+            tbl.identity_step_fn(params, ring, ring.trash_slot(), self._stream_steps, n_chunks=self._n_chunks),
         )
         stream_pad = int(os.environ.get("SK_STREAM_PAD", str(min(64, tbl.max_slots))))
         # with `expected` coalescing a co-paced period fires once every
@@ -411,8 +419,10 @@ class SttServingEngine:
         # fires the moment every active session's block is in
         last_seen: Dict[int, float] = {}
         period = self.block_samples / _SR
+        tracer = self._tracer
         while self._running:
-            ids, arrivals, blocks = await loop.run_in_executor(None, pool.drain, None, 20_000)
+            t_drain = now_ns() if tracer.enabled else 0
+            ids, _arrivals, blocks = await loop.run_in_executor(None, pool.drain, None, 20_000)
             now = time.monotonic()
             for i in range(len(ids)):
                 if int(ids[i]) in self._sessions:
@@ -429,107 +439,116 @@ class SttServingEngine:
             for i in range(len(ids)):
                 s = self._sessions.get(int(ids[i]))
                 if s is not None:
-                    self._route_block(s, int(arrivals[i]), blocks[i])
+                    self._route_block(s, blocks[i])
+            if t_drain and len(ids):
+                tracer.record("stt.drain", t_drain, now_ns(), {"blocks": len(ids)})
 
-    def _route_block(self, s: _Session, arrival_ns: int, block: np.ndarray) -> None:
+    def _route_block(self, s: _Session, block: np.ndarray) -> None:
         """Group-submit the block's fused step here when the session has
         nothing queued or processing and is not closing; else queue the
         block for its worker (a closing session's worker never reads it)."""
         if self._group_submit and s.q.empty() and not s.processing and not s.closing:
             try:
-                fut, ctx = self._plan_block(s, block, arrival_ns)
+                fut, ctx = self._plan_block(s, block)
             except Exception:  # noqa: BLE001 — one session's fault must not stop the loop
                 logger.exception("planning a block of session %d failed; its worker retries it", s.sid)
             else:
                 s.q.put_nowait(("p", fut, ctx))
                 return
-        s.q.put_nowait((arrival_ns, block))
+        s.q.put_nowait(("b", block))
 
     async def _session_worker(self, s: _Session) -> None:
         try:
-            while True:
-                item = await s.q.get()
-                if item is None:
-                    break
-                s.processing = True
-                try:
-                    if item[0] == "p":
-                        _, fut, ctx = item
+            with self._tracer.span("stt.session") as span:
+                span.set_attribute("session", s.sid)
+                s.span = span
+                while True:
+                    item = await s.q.get()
+                    if item is None:
+                        break
+                    s.processing = True
+                    try:
+                        if item[0] == "p":
+                            _, fut, ctx = item
+                        else:
+                            fut, ctx = self._plan_block(s, item[1])
                         await self._finish_block(s, ctx, await fut)
-                    else:
-                        arrival_ns, block = item
-                        fut, ctx = self._plan_block(s, block, arrival_ns)
-                        await self._finish_block(s, ctx, await fut)
-                except Exception:  # noqa: BLE001 — drop the block, keep the session
-                    logger.exception("block of session %d failed", s.sid)
-                finally:
-                    s.processing = False
-            for ev in s.seg.flush():  # close any open segment
-                await self._segment_closed(s, ev[2], ev[3])
+                    except Exception:  # noqa: BLE001 — drop the block, keep the session
+                        logger.exception("block of session %d failed", s.sid)
+                    finally:
+                        s.processing = False
+                for ev in s.seg.flush():  # close any open segment
+                    await self._segment_closed(s, ev[2], ev[3])
         finally:
             self._tbl.free(s.stream_id)
             self._ring.free(s.vad_slot)
             if self._sessions.get(s.sid) is s:  # the ingest id may already serve a new session
                 del self._sessions[s.sid]
 
-    def _plan_block(self, s: _Session, block: np.ndarray, arrival_ns: int = 0):
+    def _plan_block(self, s: _Session, block: np.ndarray):
         """Plan and submit one block's fused step (synchronous) → ``(result
         future, ctx)``. The session's cursors advance only once the submit
         has succeeded: a planning fault leaves them as they were."""
-        t_deq = time.monotonic() if self.trace_blocks is not None else 0.0
-        block2 = block.reshape(self.vad_block, VAD_FRAME)
-        n_req, do_dec, now = 0, False, time.monotonic()
-        if s.seg.in_speech and s.st_ready:
-            avail = s.written + block.size - RIGHT_CTX - s.st_tip
-            room = (self._tbl.enc_t - s.st_pos) // CHUNK_POS
-            n_req = max(0, min(avail // CHUNK_SAMPLES, self._n_chunks))
-            if room < n_req:
-                n_req = 0  # horizon full: partials freeze
-            do_dec = s.st_pos + CHUNK_POS * n_req > 0 and now - s.st_last_dec >= self.partial_interval
-        rs = self._ring.ring_samples
-        meta_row = np.concatenate([
-            np.asarray([s.vad_slot, s.stream_id, s.written % rs, s.st_tip % rs, n_req, int(do_dec),
-                        int(s.pending_reset)], np.int32),
-            self._prefix,
-        ])
-        t_sub = time.monotonic() if self.trace_blocks is not None else 0.0
-        fut = self.batcher.submit_nowait(self._sstep_kind, meta_row, block2)
-        if do_dec:
-            s.st_last_dec = now
-        s.pending_reset = False
-        s.written += block.size
-        s.st_tip += n_req * CHUNK_SAMPLES
-        s.st_pos += n_req * CHUNK_POS
-        return fut, (arrival_ns, t_deq, t_sub, block2, do_dec)
+        with self._tracer.span("stt.plan", parent=s.span) as span:
+            block2 = block.reshape(self.vad_block, VAD_FRAME)
+            n_req, do_dec, now = 0, False, time.monotonic()
+            if s.seg.in_speech and s.st_ready:
+                avail = s.written + block.size - RIGHT_CTX - s.st_tip
+                room = (self._tbl.enc_t - s.st_pos) // CHUNK_POS
+                n_req = max(0, min(avail // CHUNK_SAMPLES, self._n_chunks))
+                if room < n_req:
+                    n_req = 0  # horizon full: partials freeze
+                do_dec = s.st_pos + CHUNK_POS * n_req > 0 and now - s.st_last_dec >= self.partial_interval
+            span.set_attribute("session", s.sid)
+            span.set_attribute("n_req", n_req)
+            span.set_attribute("do_dec", do_dec)
+            rs = self._ring.ring_samples
+            meta_row = np.concatenate([
+                np.asarray([s.vad_slot, s.stream_id, s.written % rs, s.st_tip % rs, n_req, int(do_dec),
+                            int(s.pending_reset)], np.int32),
+                self._prefix,
+            ])
+            fut = self.batcher.submit_nowait(self._sstep_kind, meta_row, block2)
+            if do_dec:
+                s.st_last_dec = now
+            s.pending_reset = False
+            s.written += block.size
+            s.st_tip += n_req * CHUNK_SAMPLES
+            s.st_pos += n_req * CHUNK_POS
+            return fut, (block2, do_dec)
 
     async def _finish_block(self, s: _Session, ctx, result) -> None:
-        arrival_ns, t_deq, t_sub, block2, do_dec = ctx
+        block2, do_dec = ctx
         probs, tok_row, ntk, _ = result
-        if self.trace_blocks is not None:
-            self.trace_blocks.append((s.sid, arrival_ns / 1e9, t_deq, t_sub, time.monotonic()))
-        partial_emit = None
-        if do_dec:
-            partial_emit = (tok_row, int(ntk), s.st_tip // VAD_FRAME)
-            s.st_last_tok = (tok_row, int(ntk))
-        for i in range(self.vad_block):
-            for kind, _samples, start_f, end_f in s.seg.push(block2[i], float(probs[i])):
-                if kind == "speech_start":
-                    s.on_event({"type": "speech_start", "seq": s.seq})
-                    s.pending_reset = True
-                    s.st_tip = start_f * VAD_FRAME
-                    s.st_pos = 0
-                    s.st_ready = True
-                    s.st_last_tok = None
-                else:
-                    s.st_ready = False
-                    await self._segment_closed(s, start_f, end_f)
-                    s.st_last_tok = None
-        # the partial after the segment events (a closing block's partial is
-        # superseded by the final)
-        if partial_emit is not None and s.seg.in_speech and s.st_ready and partial_emit[1] > len(self._prefix):
-            tok_row, ntk, end_f = partial_emit
-            self._emit(s, "partial", self._detok.decode(tok_row[len(self._prefix) : ntk]),
-                       s.seg._segment_start_frame, end_f)
+        with self._tracer.span("stt.finish", parent=s.span) as span:
+            seq0, bounds = s.seq, 0
+            partial_emit = None
+            if do_dec:
+                partial_emit = (tok_row, int(ntk), s.st_tip // VAD_FRAME)
+                s.st_last_tok = (tok_row, int(ntk))
+            for i in range(self.vad_block):
+                for kind, _samples, start_f, end_f in s.seg.push(block2[i], float(probs[i])):
+                    bounds += 1
+                    if kind == "speech_start":
+                        s.on_event({"type": "speech_start", "seq": s.seq})
+                        s.pending_reset = True
+                        s.st_tip = start_f * VAD_FRAME
+                        s.st_pos = 0
+                        s.st_ready = True
+                        s.st_last_tok = None
+                    else:
+                        s.st_ready = False
+                        await self._segment_closed(s, start_f, end_f)
+                        s.st_last_tok = None
+            # the partial after the segment events (a closing block's partial is
+            # superseded by the final)
+            if partial_emit is not None and s.seg.in_speech and s.st_ready and partial_emit[1] > len(self._prefix):
+                tok_row, ntk, end_f = partial_emit
+                self._emit(s, "partial", self._detok.decode(tok_row[len(self._prefix) : ntk]),
+                           s.seg._segment_start_frame, end_f)
+            span.set_attribute("session", s.sid)
+            # speech_start / speech_end, then the partials and finals
+            span.set_attribute("events", bounds + s.seq - seq0)
 
     async def _segment_closed(self, s: _Session, start_f: int, end_f: int) -> None:
         s.on_event({"type": "speech_end", "seq": s.seq})
@@ -551,10 +570,14 @@ class SttServingEngine:
         rs = self._ring.ring_samples
         s.awaiting_final = True
         try:
-            tokens, length = await self.batcher.submit(
-                f"{self._stt_kind}:{window}", np.int32(s.vad_slot), np.int32((start_f * VAD_FRAME) % rs),
-                np.int32(n), np.int32(self._lang_index),
-            )
+            # a child of the block's stt.finish (or, at close, of stt.session)
+            with self._tracer.span("stt.final_exact") as span:
+                span.set_attribute("session", s.sid)
+                span.set_attribute("window", window)
+                tokens, length = await self.batcher.submit(
+                    f"{self._stt_kind}:{window}", np.int32(s.vad_slot), np.int32((start_f * VAD_FRAME) % rs),
+                    np.int32(n), np.int32(self._lang_index),
+                )
         finally:
             s.awaiting_final = False
         self._emit(s, "final", self._detok.decode(tokens[: int(length)]), start_f, end_f)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...ops.mel import log_mel_spectrogram
+from ...utils.tracing import NOOP_SPAN, get_tracer
 from .config import WhisperConfig
 from .model import Params, _check_tokens, decode_logits, decode_step, encode, init_kv_cache
 
@@ -68,10 +69,13 @@ def _greedy_loop(
     suppress_bias: Optional[torch.Tensor] = None,  # [n_vocab] added to every step
     begin_bias: Optional[torch.Tensor] = None,  # [n_vocab] first sampled token only
     with_logprobs: bool = False,
+    span=NOOP_SPAN,
 ):  # -> (tokens, lengths) or (tokens, lengths, lp_sum)
     """Greedy decode → (tokens ``[batch, max_tokens]`` int32, lengths
     ``[batch]``), plus the summed chosen-token log-probs of content tokens
-    with ``with_logprobs``. Rows stop at ``eot`` or their ``token_caps``."""
+    with ``with_logprobs``. Rows stop at ``eot`` or their ``token_caps``.
+    ``span`` gets the decode steps run (``steps``) and the host's reads of
+    the done flags (``host_syncs``)."""
     batch = audio_states.shape[0]
     n_prefix = prefix.shape[1]
     if max_tokens + n_prefix > cfg.n_text_ctx:
@@ -106,9 +110,13 @@ def _greedy_loop(
     else:
         lp_sum = torch.zeros((batch,), dtype=torch.float32, device=dev)
 
+    steps, syncs = n_prefix, 0
     for i in range(max_tokens - 1):
-        if i % DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
+        if i % DONE_CHECK_EVERY == 0:
+            syncs += 1
+            if bool(done.all()):
+                break
+        steps += 1
         logits, cache = decode_step(params, cfg, tokens[:, i], cache)
         if suppress_bias is not None:
             logits = logits + suppress_bias
@@ -119,6 +127,8 @@ def _greedy_loop(
         tokens[:, i + 1] = nxt
         done = done | (nxt == eot) | (i + 2 > caps)
     lengths = (tokens != eot).sum(dim=-1).to(torch.int32)
+    span.set_attribute("steps", steps)
+    span.set_attribute("host_syncs", syncs)
     if with_logprobs:
         return tokens, lengths, lp_sum
     return tokens, lengths
@@ -222,6 +232,7 @@ def _ring_stt(
     suppress_bias: Optional[torch.Tensor] = None,
     begin_bias: Optional[torch.Tensor] = None,
     with_logprobs: bool = False,
+    span=NOOP_SPAN,
 ):
     """Ring gather → mel → encode → greedy decode, one batch."""
     mel = _ring_mel(params, cfg, ring, slot_ids, starts, lengths, window_samples)
@@ -231,7 +242,7 @@ def _ring_stt(
     return _greedy_loop(
         params, cfg, audio_states, _prefix(cfg, lang_rows, cfg.token_transcribe), max_tokens,
         cross_kv_int8=cross_kv_int8, token_caps=token_caps,
-        suppress_bias=suppress_bias, begin_bias=begin_bias, with_logprobs=with_logprobs,
+        suppress_bias=suppress_bias, begin_bias=begin_bias, with_logprobs=with_logprobs, span=span,
     )
 
 
@@ -284,20 +295,24 @@ def transcribe_ring(
 ):
     """Decode straight from device-resident audio rings: each row is
     ``(slot, start, length)``; ``language_index`` is one index or one per row.
-    Returns device tensors ``(tokens, lengths[, lp_sum])``."""
+    Returns device tensors ``(tokens, lengths[, lp_sum])``. Traced as
+    ``decode.ring`` (rows, window, steps, host_syncs)."""
     if cross_kv_int8 is None:
         cross_kv_int8 = _default_int8(_param_dtype(params))
-    slot_ids, starts, lengths = _ring_coords(ring, slot_ids, starts, lengths)
-    lang_rows = torch.as_tensor(language_index, dtype=torch.int32, device=ring.device)
-    if lang_rows.ndim == 0:
-        lang_rows = lang_rows.expand(slot_ids.shape[0])
-    return _ring_stt(
-        params, cfg, ring, slot_ids, starts, lengths, lang_rows,
-        window_samples=window_samples, max_tokens=max_tokens, cross_kv_int8=cross_kv_int8,
-        suppress_bias=_as_bias(suppress_bias, ring.device),
-        begin_bias=_as_bias(begin_bias, ring.device),
-        with_logprobs=with_logprobs,
-    )
+    with get_tracer().span("decode.ring") as span:
+        slot_ids, starts, lengths = _ring_coords(ring, slot_ids, starts, lengths)
+        span.set_attribute("rows", slot_ids.shape[0])
+        span.set_attribute("window", window_samples)
+        lang_rows = torch.as_tensor(language_index, dtype=torch.int32, device=ring.device)
+        if lang_rows.ndim == 0:
+            lang_rows = lang_rows.expand(slot_ids.shape[0])
+        return _ring_stt(
+            params, cfg, ring, slot_ids, starts, lengths, lang_rows,
+            window_samples=window_samples, max_tokens=max_tokens, cross_kv_int8=cross_kv_int8,
+            suppress_bias=_as_bias(suppress_bias, ring.device),
+            begin_bias=_as_bias(begin_bias, ring.device),
+            with_logprobs=with_logprobs, span=span,
+        )
 
 
 @torch.no_grad()

@@ -61,7 +61,6 @@ from __future__ import annotations
 import logging
 import os
 import threading
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -74,6 +73,7 @@ from ...ops.mel import HOP_LENGTH, N_FFT, _dft_bases, _mel_mat, frame_signal
 from ...ops.stream_attention import scaled_operand
 from .config import WhisperConfig
 from ...ops.tensor_parallel import embed_rows
+from ...utils.tracing import get_tracer, now_ns
 from .model import Params, _dense, _layernorm, _logits, _merge_heads, _mlp, _split_heads
 
 __all__ = [
@@ -474,6 +474,7 @@ def _stream_step(
     max_steps: int,
     n_chunks: int,
     identity: bool,
+    t_prep: int = 0,
 ):
     """Fused per-VAD-block step: open segments (``do_reset``), score VAD
     frames, append them to the rings, encode up to ``n_chunks`` chunks per
@@ -482,8 +483,15 @@ def _stream_step(
     locks) and returns ``(probs, tokens, n_tok, enc_pos)`` rows.
 
     ``identity`` is the dense-serving packing: B = S and row b is slot b;
-    every cache read is a slice and every cache write a kernel launch."""
+    every cache read is a slice and every cache write a kernel launch.
+
+    Spans (host time, when the tracer is on): ``stream.prep`` from
+    ``t_prep`` (the caller's packing and copies in) through the segment
+    open, then ``stream.vad``, ``stream.encode`` and ``stream.decode``. They
+    add no device synchronisation."""
     from ...engine.audio_ring import _vad_append
+
+    tracer = get_tracer()
 
     slot_ids, stream_ids = meta[:, 0], meta[:, 1]
     wpos, cstart, n_req = meta[:, 2], meta[:, 3], meta[:, 4]
@@ -502,24 +510,29 @@ def _stream_step(
     fed_rows = torch.where(do_reset, 0, rows(fed))
     n_rows = torch.where(do_reset, p_len, rows(n_tok))
     pos_rows = torch.where(do_reset, 0, rows(enc_pos))
+    if t_prep:
+        tracer.record("stream.prep", t_prep, now_ns())
 
     # 1) VAD score + ring append (out of place, see the module docstring)
-    audio_ring._ring, probs = _vad_append(audio_ring._vad_state, audio_ring._ring, slot_ids.long(),
-                                          wpos.long(), frames_b)
+    with tracer.span("stream.vad"):
+        audio_ring._ring, probs = _vad_append(audio_ring._vad_state, audio_ring._ring, slot_ids.long(),
+                                              wpos.long(), frames_b)
 
     # 2) commit-guarded chunk encode against the appended ring
-    pos_new = _encode_core(
-        params, cfg, audio_ring._ring, slot_ids, cstart,
-        tbl._enc_k, tbl._enc_v, tbl._xk, tbl._xv, stream_ids, pos_rows, n_chunks, tbl.enc_t,
-        commit=n_req, identity=identity,
-    )
+    with tracer.span("stream.encode"):
+        pos_new = _encode_core(
+            params, cfg, audio_ring._ring, slot_ids, cstart,
+            tbl._enc_k, tbl._enc_v, tbl._xk, tbl._xv, stream_ids, pos_rows, n_chunks, tbl.enc_t,
+            commit=n_req, identity=identity,
+        )
 
     # 3) decode continuation against the updated cross context
-    tok_rows, fed_rows, n_rows = _decode_core(
-        params, cfg, tbl._dec_k, tbl._dec_v, tbl._xk, tbl._xv, stream_ids, pos_new,
-        tok_rows, fed_rows, n_rows, do_dec, max_steps, tbl.enc_t, identity=identity,
-        suppress_bias=tbl.suppress_bias, begin_bias=tbl.begin_bias,
-    )
+    with tracer.span("stream.decode"):
+        tok_rows, fed_rows, n_rows = _decode_core(
+            params, cfg, tbl._dec_k, tbl._dec_v, tbl._xk, tbl._xv, stream_ids, pos_new,
+            tok_rows, fed_rows, n_rows, do_dec, max_steps, tbl.enc_t, identity=identity,
+            suppress_bias=tbl.suppress_bias, begin_bias=tbl.begin_bias,
+        )
     if identity:
         tbl._tokens, tbl._fed, tbl._n_tok, tbl._enc_pos = tok_rows, fed_rows, n_rows, pos_new
     else:
@@ -689,9 +702,13 @@ class StreamTable:
         do_reset=None,
         prefix_b=None,
         n_chunks: int = 2,
+        t_prep: int = 0,
     ):
         """Fused per-block step (VAD + ring append + encode + decode) →
         ``(probs, tokens, n_tok, enc_pos)`` rows as device tensors.
+        ``t_prep`` (:func:`...utils.tracing.now_ns`) starts the
+        ``stream.prep`` span earlier than this call, at the caller's own
+        packing.
 
         Takes per-field arrays, or (``slot_ids`` 2-D) a packed ``meta`` of
         shape ``[B, META_COLS + META_PREFIX]``. A batch in slot order (B =
@@ -700,6 +717,8 @@ class StreamTable:
         On a mesh the ids are global and this rank runs the rows of its
         slots (local rows in slot order run in identity mode); it returns
         their outputs, or None when it owns none."""
+        if not t_prep and get_tracer().enabled:
+            t_prep = now_ns()
         sl = np.asarray(slot_ids)
         if sl.ndim == 2:
             meta = sl.astype(np.int32)
@@ -733,7 +752,7 @@ class StreamTable:
         with audio_ring._step_lock:
             with self._step_lock:
                 return _stream_step(params, self.cfg, self, audio_ring, meta_d, frames, max_steps, n_chunks,
-                                    identity)
+                                    identity, t_prep)
 
     def identity_step_fn(
         self,
@@ -742,7 +761,6 @@ class StreamTable:
         trash_slot: int,
         max_steps: int,
         n_chunks: int = 2,
-        trace_calls: Optional[list] = None,
     ):
         """Batcher-ready fused-step closure in identity packing: submitted
         meta rows (host arrays) are scattered into slot order so batch row p
@@ -753,13 +771,17 @@ class StreamTable:
         On a mesh every rank calls it with the same rows (the serving engine
         broadcasts them); each runs its dp share of the slots and the rows'
         outputs are all-gathered over dp (``trash_slot`` is ``-1``: each
-        rank's own trash row)."""
+        rank's own trash row). Its spans: ``stream.prep`` from the scatter
+        into slot order, the step's own (:func:`_stream_step`), and
+        ``stream.fetch``, the copy of the outputs to the host: the one place
+        the call waits for the device."""
         from ...engine.audio_ring import pcm_to_wire
 
         n_slots = self.max_slots
+        tracer = get_tracer()
 
         def batched_sstep(meta, frames):
-            t_in = time.monotonic() if trace_calls is not None else 0.0
+            t_prep = now_ns() if tracer.enabled else 0
             perm = meta[:, 1].astype(np.int64)
             meta_s = np.zeros((n_slots, meta.shape[1]), np.int32)
             meta_s[:, 0] = trash_slot
@@ -768,16 +790,14 @@ class StreamTable:
             meta_s[perm] = meta
             frames_s[perm] = pcm_to_wire(frames)
             out = self.step(params, audio_ring, meta_s, None, None, None, None, None, frames_s, max_steps,
-                            n_chunks=n_chunks)
-            t_fetch = time.monotonic() if trace_calls is not None else 0.0
-            if self.shard is None:
-                probs, tok_rows, n_rows, pos_new = (o.cpu().numpy() for o in out)
-            else:
-                from ...parallel.serving import gather_rows
+                            n_chunks=n_chunks, t_prep=t_prep)
+            with tracer.span("stream.fetch"):
+                if self.shard is None:
+                    probs, tok_rows, n_rows, pos_new = (o.cpu().numpy() for o in out)
+                else:
+                    from ...parallel.serving import gather_rows
 
-                probs, tok_rows, n_rows, pos_new = gather_rows(self.shard, *out)
-            if trace_calls is not None:
-                trace_calls.append((t_in, meta.shape[0], t_fetch, time.monotonic()))
+                    probs, tok_rows, n_rows, pos_new = gather_rows(self.shard, *out)
             return probs[perm], tok_rows[perm], n_rows[perm], pos_new[perm]
 
         return batched_sstep

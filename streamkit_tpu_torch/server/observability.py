@@ -67,6 +67,8 @@ def collect_metrics(state):
             out.append(("skit_batcher_kind_calls", "counter", ks["calls"], labels))
             out.append(("skit_batcher_kind_items", "counter", ks["items"], labels))
             out.append(("skit_batcher_kind_dispatch_seconds", "counter", ks["dispatch_s"], labels))
+            # items' wait from submit to their call's start, summed
+            out.append(("skit_batcher_kind_queue_seconds", "counter", ks["queue_s"], labels))
     # per-session node stats + distributor counters
     for session in state.sessions.list():
         engine = session.handle._engine

@@ -193,3 +193,38 @@ def test_expected_coalescing_fires_at_expected_not_window():
     b2.set_expected("k", 3)
     b2.set_expected("k", 0)
     assert b2.registered_kinds()["k"].expected is None
+
+
+def test_queue_wait_is_counted_per_kind_and_exported():
+    """``kind_wait_s`` sums each item's wait from its submit to its call's
+    start: a lone item held by a 300 ms gather waits about that long, four
+    items that fill ``expected`` wait almost nothing. ``stats()`` shows it as
+    ``queue_s`` and the metrics endpoint as
+    ``skit_batcher_kind_queue_seconds``."""
+    from types import SimpleNamespace
+
+    from streamkit_tpu_torch.server.observability import collect_metrics
+
+    async def main():
+        b = DeviceBatcher(tick_ms=2.0, device="cpu")
+        b.register("held", lambda x: x + 1.0, pad_to=8, gather_ms=300.0)
+        b.register("full", lambda x: x * 2.0, pad_to=8, gather_ms=5000.0)
+        b.set_expected("full", 4)
+        b.start()
+        await b.submit("held", np.float32(1))
+        await asyncio.gather(*(b.submit("full", np.float32(i)) for i in range(4)))
+        b.stop()
+        return b
+
+    b = asyncio.run(main())
+    assert 0.25 <= b.kind_wait_s["held"] < 5.0, b.kind_wait_s
+    assert 0.0 < b.kind_wait_s["full"] < 4 * 0.25, b.kind_wait_s
+    assert [list(b.kind_stats[k])[:2] for k in ("held", "full")] == [[1, 1], [1, 4]]
+    kinds = b.stats()["kinds"]
+    assert kinds["held"]["queue_s"] == round(b.kind_wait_s["held"], 2)
+    state = SimpleNamespace(sessions=SimpleNamespace(list=lambda: []), _ws_clients=[], batcher=b,
+                            resources=SimpleNamespace(stats=lambda: {"entries": 0}, hits=0, misses=0))
+    queue = {labels["kind"]: value for name, kind, value, labels in collect_metrics(state)
+             if name == "skit_batcher_kind_queue_seconds" and kind == "counter"}
+    assert queue == {"held": kinds["held"]["queue_s"], "full": kinds["full"]["queue_s"]}
+

@@ -317,6 +317,90 @@ def test_fused_stream_step_on_cuda_matches_cpu():
 
 
 @pytest.mark.cuda
+def test_fused_call_spans_hold_its_launches_and_kernels():
+    """The tracer's spans and the profiler's events share one clock on the
+    card: every kernel launch (the runtime's launch event on the host) of a
+    fused call through the batcher lies inside one of that call's
+    ``stream.*`` spans, and every kernel runs between the spans' start and
+    the call's ``stream.fetch`` end (the one place the call waits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from streamkit_tpu_torch.engine.audio_ring import SessionAudioRing
+    from streamkit_tpu_torch.engine.batcher import DeviceBatcher
+    from streamkit_tpu_torch.models.whisper import StreamTable, WhisperConfig, init_params
+    from streamkit_tpu_torch.utils.tracing import get_tracer
+
+    cfg = WhisperConfig(n_mels=80, n_audio_ctx=64, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+                        n_vocab=512, n_text_ctx=32, n_text_state=128, n_text_head=2, n_text_layer=2)
+    S, block = 2, 8 * 512
+    ring = SessionAudioRing(max_slots=S + 1, ring_samples=1 << 14, device="cuda")
+    for _ in range(S + 1):
+        ring.alloc()
+    tbl = StreamTable(cfg, torch.float32, max_slots=S, enc_t=64, dec_t=32, kv_int8=True, device="cuda")
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu").to("cuda")
+    audio = (np.random.RandomState(0).randn(S, 3 * block) * 0.2).astype(np.float32)
+
+    async def calls(b, steps):
+        for step in steps:
+            n_req, tip = (1, (step - 1) * 2560) if step else (0, 0)
+            rows = [np.asarray([s, s, step * block, tip, n_req, int(step > 0), int(step == 0), 1, 2, 3, 4], np.int32)
+                    for s in range(S)]
+            await asyncio.gather(*(b.submit("sstep", rows[s], audio[s, step * block : (step + 1) * block]
+                                            .reshape(8, 512)) for s in range(S)))
+
+    try:
+        cfg_all = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], experimental_config=cfg_all)
+    except (AttributeError, TypeError):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    tracer = get_tracer()
+
+    async def main():
+        b = DeviceBatcher(tick_ms=2.0, device="cuda")
+        b.register("sstep", tbl.identity_step_fn(params, ring, trash_slot=S, max_steps=3), pad_to=S,
+                   host_inputs=True)
+        await calls(b, [0])  # builds and warms every kernel
+        tracer.drain()
+        tracer.enable()
+        try:
+            with prof:
+                await calls(b, [1, 2])
+                torch.cuda.synchronize()
+        finally:
+            tracer.disable()
+            b.stop()
+
+    asyncio.run(main())
+    spans = tracer.drain()
+    call_spans = [sp for sp in spans if sp.name == "batcher.call"]
+    assert len(call_spans) == 2
+    events = list(prof.profiler.kineto_results.events())
+    launches = [e for e in events if not str(e.device_type()).endswith("CUDA") and "LaunchKernel" in e.name()]
+    kernels = [e for e in events if str(e.device_type()).endswith("CUDA") and not e.is_user_annotation()
+               and "emcpy" not in e.name() and "emset" not in e.name()]
+    assert launches and kernels
+    for call in call_spans:
+        phases = [sp for sp in spans if sp.parent_span_id == call.span_id and sp.name.startswith("stream.")]
+        assert {sp.name for sp in phases} == {"stream.prep", "stream.vad", "stream.encode", "stream.decode",
+                                              "stream.fetch"}
+        lo = min(sp.start_ns for sp in phases)
+        fetch_end = next(sp.end_ns for sp in phases if sp.name == "stream.fetch")
+        mine = [e for e in launches if call.start_ns <= e.start_ns() <= call.end_ns]
+        assert len(mine) >= 10, len(mine)
+        outside = [e.name() for e in mine
+                   if not any(sp.start_ns <= e.start_ns() <= sp.end_ns for sp in phases if sp.name != "stream.fetch")]
+        assert not outside, outside
+        ran = [e for e in kernels if lo <= e.start_ns() <= call.end_ns]
+        assert len(ran) >= len(mine)
+        assert all(e.start_ns() + e.duration_ns() <= fetch_end for e in ran)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("batched", [False, True], ids=["transcribe-window", "ring-batcher-auto-language"])
 def test_whisper_node_pipeline_on_cuda_matches_cpu(batched):
     """A oneshot STT pipeline through the port's registry and WhisperNode,

@@ -113,10 +113,10 @@ def test_closing_session_keeps_late_blocks_off_the_device():
         block = np.zeros(eng.block_samples, np.float32)
         eng.close_session(sid)
         before = eng.batcher.submissions
-        eng._route_block(s, 0, block)
+        eng._route_block(s, block)
         late = eng.batcher.submissions - before
         queued = s.q.qsize()
-        eng._route_block(eng._sessions[live], 0, block)
+        eng._route_block(eng._sessions[live], block)
         live_submitted = eng.batcher.submissions - before
         await eng.stop()
         return late, queued, live_submitted
@@ -135,11 +135,11 @@ def test_plan_block_fault_does_not_stop_the_drain_loop(caplog):
     def arm(eng, sids):
         plan = eng._plan_block
 
-        def flaky(s, block, arrival_ns=0):
+        def flaky(s, block):
             if s.sid == sids[0] and not failed:
                 failed.append(s.sid)
                 raise RuntimeError("injected planning fault")
-            return plan(s, block, arrival_ns)
+            return plan(s, block)
 
         eng._plan_block = flaky
 
