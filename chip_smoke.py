@@ -5,8 +5,8 @@
 
 0. Builds every native source of the port at once, one compiler each:
    ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
-   ``csrc/cache_write.cu`` and ``csrc/stream_attention.cu`` with nvcc for
-   sm_90a, ``csrc/ingest.cpp`` and ``csrc/wasm_rt.cpp`` (the WASM plugin
+   ``csrc/cache_write.cu``, ``csrc/stream_attention.cu`` and
+   ``csrc/decode_attention.cu`` with nvcc for sm_90a, ``csrc/ingest.cpp`` and ``csrc/wasm_rt.cpp`` (the WASM plugin
    runtime) with g++, and prints ptxas's report per kernel (registers,
    shared memory, spills, warnings).
 1. Holds each hand-written kernel against its plain PyTorch version on the
@@ -24,10 +24,14 @@
    beside scatter_ under the same two conditions), and the fused step's two
    grouped launches against the sum of their single-pair launches;
    K3 int8-history attention at [S, 20, 16, 64, 512] (the K1 limits, and a
-   pos = 0 row that must not see the history).
+   pos = 0 row that must not see the history);
+   K4 the decode continuation's cross-attention over the int8 cross caches
+   at large-v3's [64, 20, 64, 512] (the K1 limits; columns past each row's
+   horizon must change nothing), timed at a live spread of horizons and
+   with every column visible.
 2. Context checks: a small f32 Whisper whose encoder takes K1 decodes the
    same tokens on ``cuda`` as on ``cpu``; a small f32 streaming table (int8
-   caches, identity packing, so K2 and K3 launch) runs fused block steps on
+   caches, identity packing, so K2, K3 and K4 launch) runs fused block steps on
    ``cuda`` and ``cpu`` to equal tokens and caches within tolerance.
 3. Node context check: a small f32 Whisper (1500 encoder positions, head
    dim 64, so K1 launches) behind the port's ``WhisperNode`` in a oneshot
@@ -68,7 +72,7 @@
    the port's registry; phase 4's 10 s WAV → gain 2 → whisper (large-v3
    bf16, 24 tokens) → JSON lines through each runtime and through
    ``audio::gain``, one request at a time on one ``DeviceBatcher``: the four
-   responses equal, K1 32 per encode in each, K2 and K3 none; each gain node
+   responses equal, K1 32 per encode in each, K2, K3 and K4 none; each gain node
    alone over the WAV demuxer's packets (its samples exactly 2x), host ms
    per packet and per second of audio.
 7. Profiles a few fused steps at the live-partials path's shape (large-v3,
@@ -81,8 +85,8 @@
    kind; bytes equal to the port's CPU run).
 9. A dynamic session: ``live_captions.yml``'s graph through
    ``start_dynamic_engine``, files in place of MoQ at its two ends; every
-   fused call must launch exactly 2 K2 and 32 K3, and K1 32 per ring
-   decode (the close of a segment still open at the end of the file).
+   fused call must launch exactly 2 K2, 32 K3 and 96 K4, and K1 32 per
+   ring decode (the close of a segment still open at the end of the file).
    One load check of libopus comes before 8 and 9, and a line says its
    result: without libopus 8 runs only ``double_volume.yml`` and 9 reads
    ``samples/media/speech_8s.wav`` through the WAV demuxer.
@@ -220,8 +224,8 @@
    Whisper large-v3 (random weights from seed 0): the bf16 forward, whose
    gap to the one-rank bf16 run must stay within twice the one-rank bf16
    run's own gap to its f32 run, with K1 32 per encode on each rank;
-   ``SttServingEngine(mesh=)`` with 4 stream-mode sessions (exactly 2 K2
-   and 32 K3 per fused call on each rank, its model's collectives per
+   ``SttServingEngine(mesh=)`` with 4 stream-mode sessions (exactly 2 K2,
+   32 K3 and 96 K4 per fused call on each rank, its model's collectives per
    call, no stream row held after close); one bf16 train step (64 K1 and
    64 of each backward kernel on each rank; device time, idle share, peak
    memory per rank). No multi-card time can be taken on one card.
@@ -231,7 +235,8 @@ request of 6d, 8, 9, 11, 12, 13, each request, session and the load test of 14, 
 step of 15, each rank's part of 16) and read just after; each must equal what the code implies (K1: 32 per encode of 256
 or more positions at large-v3, 4 at tiny; K2: 2 per fused step call, one
 for the encoder caches and their scales and one for the two decoder folds;
-K3: 32 per fused step call; K1's backward kernels: 0 outside 15, one each
+K3: 32 per fused step call; K4: 96 per fused step call, one per decoder
+layer and decode step; K1's backward kernels: 0 outside 15, one each
 per K1 launch of a train step). Every batcher kind these paths dispatch is registered
 by the port's nodes or ``SttServingEngine``, never by this script.
 Kernel times are device times by the profiler (CUDA-event times of a run of
@@ -270,18 +275,19 @@ def log(msg: str) -> None:
 
 def counters():
     """The launch-counting kernel wrappers, by kernel name."""
-    from streamkit_tpu_torch.ops import attention, cache_write, stream_attention
+    from streamkit_tpu_torch.ops import attention, cache_write, decode_attention, stream_attention
 
     return {"flash_attention": attention.flash_attention,
             "windowed_write": cache_write.windowed_write_groups,
             "history_attention": stream_attention.history_attention,
+            "decode_cross_attention": decode_attention.decode_cross_attention,
             "flash_attention_backward_preprocess": attention._bwd_preprocess,
             "flash_attention_backward_main": attention._bwd_main}
 
 
 # every kernel's count at 0: a path's expected counts start from it, so K1's
 # backward kernels must stay at 0 wherever nothing is trained
-ZERO_LAUNCHES = {"flash_attention": 0, "windowed_write": 0, "history_attention": 0,
+ZERO_LAUNCHES = {"flash_attention": 0, "windowed_write": 0, "history_attention": 0, "decode_cross_attention": 0,
                  "flash_attention_backward_preprocess": 0, "flash_attention_backward_main": 0}
 
 
@@ -297,11 +303,11 @@ def read_counts() -> dict:
 def build_phase() -> None:
     """Start one compiler per native source, all at once; raise on failure."""
     from streamkit_tpu_torch.engine import ingest
-    from streamkit_tpu_torch.ops import _build, attention, cache_write, stream_attention
+    from streamkit_tpu_torch.ops import _build, attention, cache_write, decode_attention, stream_attention
     from streamkit_tpu_torch.plugins import wasm
 
-    sources = [attention.SOURCE, attention.BWD_SOURCE, cache_write.SOURCE, stream_attention.SOURCE, ingest.SOURCE,
-               wasm.SOURCE]
+    sources = [attention.SOURCE, attention.BWD_SOURCE, cache_write.SOURCE, stream_attention.SOURCE,
+               decode_attention.SOURCE, ingest.SOURCE, wasm.SOURCE]
     t0 = time.monotonic()
     _build.build_all(sources)
     for src in sources:
@@ -872,6 +878,78 @@ def k3_phase(S: int):
     return entry
 
 
+def k4_phase(S: int = 64):
+    """The decode continuation's cross-attention at large-v3's [S, 20, 64,
+    512] in bf16 and f32 against the plain version run in f32, with columns
+    past each row's horizon that must change nothing; timed in bf16 beside
+    its bound and the plain version at a live spread of horizons and with
+    every column visible. The timed calls take 4 layers' caches in turn
+    (4 x 84 MB), so the 50 MB L2 holds none of a call's bytes, as on the
+    path, where 32 layers take turns."""
+    from streamkit_tpu_torch.ops import decode_attention as da
+
+    B, H, hd, T, layers = S, 20, 64, 512, 4
+    g = torch.Generator(device="cuda").manual_seed(5)
+    i8 = lambda *s: torch.randint(-127, 128, s, device="cuda", generator=g, dtype=torch.int8)  # noqa: E731
+    sc = lambda *s: torch.rand(s, device="cuda", generator=g) * 0.02 + 0.001  # noqa: E731
+    q32 = torch.randn(B, H, 1, hd, device="cuda", generator=g) * 0.3
+    caches = [dict(k8=i8(B, H, hd, T), ks=sc(B, H, T), v8=i8(B, H, hd, T), vs=sc(B, H, T)) for _ in range(layers)]
+    kw = caches[0]
+    # live speech: segments of 0.2-4.2 s at 50 encoder columns a second, a
+    # row not yet encoded and a full one
+    live = torch.randint(10, 211, (B,), device="cuda", generator=g, dtype=torch.int32)
+    live[:2] = torch.tensor([0, T], dtype=torch.int32)
+    full = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    op = hd ** -0.25
+    entry = {"name": "decode_cross_attention", "route": "cuda", "source": "streamkit_tpu_torch/csrc/decode_attention.cu",
+             "replaces": "no TPU kernel: the plain expression of streamkit_tpu/models/whisper/streaming.py:740-742, "
+                         "which XLA fuses", "library_ms": None}
+    for dtype in (torch.bfloat16, torch.float32):
+        qs = q32.to(dtype)
+        for label, ep in (("live", live), ("full", full)):
+            out = da.decode_cross_attention(qs, **kw, ep=ep, op_scale=op)
+            torch.cuda.synchronize()
+            ref = da.decode_cross_attention_reference(qs.float(), **kw, ep=ep, op_scale=op)
+            err = (out - ref).abs().max().item()
+            if dtype == torch.float32:
+                tol = 1e-4
+            else:
+                tol = 2 * (da.decode_cross_attention_reference(qs, **kw, ep=ep, op_scale=op) - ref).abs().max().item()
+            past = torch.arange(T, device="cuda")[None, None, :] >= torch.clamp(ep, min=1)[:, None, None]
+            junk = dict(k8=kw["k8"].masked_fill(past[:, :, None, :], 99),
+                        v8=kw["v8"].masked_fill(past[:, :, None, :], -99),
+                        ks=kw["ks"].masked_fill(past, 7.0), vs=kw["vs"].masked_fill(past, 7.0))
+            moved = (da.decode_cross_attention(qs, **junk, ep=ep, op_scale=op) - out).abs().max().item()
+            line = dict(shape=[B, H, hd, T], dtype=str(dtype).split(".")[-1], horizons=label,
+                        ep_mean=float(ep.float().mean()), max_abs_err=err, tol=tol, past_horizon_moved=moved)
+            if not math.isfinite(err) or err > tol or moved != 0.0:
+                raise AssertionError(f"decode_cross_attention {dtype}: {line}")
+            if dtype == torch.bfloat16:
+                cols = int(torch.clamp(ep, min=1).sum())  # the kernel reads only the visible columns
+                nbytes = qs.numel() * qs.element_size() + out.numel() * 4 + 4 * B + H * cols * (2 * hd + 8)
+                flops = 4 * H * hd * cols  # f32 on the CUDA cores
+                t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
+                turn = iter(range(1 << 30))
+                kt = kernel_ms(lambda: da.decode_cross_attention(qs, **caches[next(turn) % layers], ep=ep,
+                                                                 op_scale=op))
+                pt = kernel_ms(lambda: da.decode_cross_attention_reference(qs, **caches[next(turn) % layers], ep=ep,
+                                                                           op_scale=op), iters=10)
+                line.update(ms=kt["ms"], plain_ms=pt["ms"], bound_ms=max(t_ops, t_bytes), event_ms=kt["event_ms"],
+                            plain_event_ms=pt["event_ms"], plain_kernels_per_call=pt.get("kernels_per_call"),
+                            bound_by="operations" if t_ops >= t_bytes else "bytes", bytes=nbytes, flops=flops,
+                            bound_share=max(t_ops, t_bytes) / kt["ms"])
+                suffix = "" if label == "live" else "_full"
+                entry.update({"max_abs_err" + suffix: err, "ms" + suffix: kt["ms"], "plain_ms" + suffix: pt["ms"],
+                              "bound_ms" + suffix: line["bound_ms"], "bound_by": line["bound_by"]})
+            else:
+                line.update(kernel_ms(lambda: da.decode_cross_attention(qs, **kw, ep=ep, op_scale=op)))
+            log("# k4 " + json.dumps(line))
+    log("# k4 library: no single PyTorch call takes int8 K/V with per-column scales and per-row horizons")
+    del caches, kw
+    torch.cuda.empty_cache()
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # 2. cuda tokens == cpu tokens on a small f32 config through the kernel
 # ---------------------------------------------------------------------------
@@ -1386,6 +1464,15 @@ def flash_per_encode() -> int:
     return WHISPER_CONFIGS["large-v3"].n_audio_layer
 
 
+def cross_per_call(layers: int = 0) -> int:
+    """K4 launches per fused call: one per decoder layer (large-v3's by
+    default) and decode step (``SK_STREAM_STEPS``, as the node and the
+    engine read it)."""
+    from streamkit_tpu_torch.models.whisper import WHISPER_CONFIGS
+
+    return (layers or WHISPER_CONFIGS["large-v3"].n_text_layer) * int(os.environ.get("SK_STREAM_STEPS", "3"))
+
+
 def kind_calls(stats: dict, prefix: str) -> int:
     return sum(v["calls"] for k, v in stats["kinds"].items() if k.startswith(prefix))
 
@@ -1506,7 +1593,8 @@ def live_captions_path(resources, n_sessions: int = 2, speech_s: float = 8.0):
     calls = kind_calls(stats, "stream_step:")
     want = {**ZERO_LAUNCHES, "flash_attention": flash_per_encode() * (kind_calls(stats, "whisper_ring:")
                                                       + kind_calls(stats, "whisper_detect:")),
-            "windowed_write": 2 * calls, "history_attention": flash_per_encode() * calls}
+            "windowed_write": 2 * calls, "history_attention": flash_per_encode() * calls,
+            "decode_cross_attention": cross_per_call() * calls}
     log("# live batcher " + json.dumps(stats))
     log(f"# live-captions path: {calls} fused calls, launches {counts}, expected {want}; wall {wall:.1f} s")
     if counts != want or calls == 0:
@@ -1561,7 +1649,7 @@ def node_context_phase():
 
 
 # ---------------------------------------------------------------------------
-# 2b. the streaming table: cuda == cpu on a small f32 config through K2, K3
+# 2b. the streaming table: cuda == cpu on a small f32 config through K2, K3, K4
 # ---------------------------------------------------------------------------
 def stream_context_phase():
     from streamkit_tpu_torch.engine import SessionAudioRing
@@ -1626,7 +1714,8 @@ def stream_context_phase():
             ok = report[w]["max_abs_err"] <= 1e-4
         if not ok:
             raise AssertionError(f"stream context: {w} differs between cuda and cpu: {report}")
-    want = {**ZERO_LAUNCHES, "windowed_write": 2 * n_steps, "history_attention": cfg.n_audio_layer * n_steps}
+    want = {**ZERO_LAUNCHES, "windowed_write": 2 * n_steps, "history_attention": cfg.n_audio_layer * n_steps,
+            "decode_cross_attention": cfg.n_text_layer * 3 * n_steps}
     log("# stream context " + json.dumps(report))
     if report["vad_max_abs_err"] > 1e-4 or counts != want or int(tg._n_tok.min()) <= 4:
         raise AssertionError(f"stream context: launches {counts} (want {want}), {report}")
@@ -1747,7 +1836,7 @@ def live_partials_path(resources, cfg_layers: int = 32):
             "fused_call_ms_max": 1e3 * float(np.max(walls)), "finals_stream": out["finals_stream"],
             "finals_fallback": out["finals_fallback"], "batcher": out["stats"]}))
     want = {**ZERO_LAUNCHES, "flash_attention": cfg_layers * flash_encodes, "windowed_write": 2 * calls,
-            "history_attention": cfg_layers * calls}
+            "history_attention": cfg_layers * calls, "decode_cross_attention": cross_per_call(cfg_layers) * calls}
     log(f"# live-partials path: launches {counts}, expected {want}; wall {t_path:.1f} s")
     if counts != want or calls == 0:
         raise AssertionError(f"live-partials path launched {counts}, expected {want}")
@@ -1804,6 +1893,8 @@ def profile_fused_step(S: int = 8, warm: int = 4, steps: int = 3):
     report = {"wall_ms_per_call": wall_ms, "device_ms_per_call": busy,
               "device_idle_share": 1.0 - busy / wall_ms, "kernels_per_call": len(ks) / steps,
               "windowed_write_ms": share("windowed_write"), "history_attention_ms": share("history_attention"),
+              "decode_cross_attention_ms": share("decode_cross_attention"),
+              "direct_copy_ms": share("direct_copy"),
               "windowed_write_kernels_per_call": sum(v[0] for k, v in by_name.items() if "windowed_write" in k) / steps,
               "top": [[k[:80], v[0] / steps, v[1] / steps] for k, v in top]}
     log("# fused-step profile " + json.dumps(report))
@@ -2177,7 +2268,7 @@ def dynamic_session_path(resources, opus: bool, speed: float = 4.0) -> dict:
     log("# dynamic session " + json.dumps(report))
     show([r for r in rows if r["is_final"]], "dynamic session final")
     want = {**ZERO_LAUNCHES, "flash_attention": flash_per_encode() * encodes, "windowed_write": 2 * calls,
-            "history_attention": flash_per_encode() * calls}
+            "history_attention": flash_per_encode() * calls, "decode_cross_attention": cross_per_call() * calls}
     if counts != want or calls == 0:
         raise AssertionError(f"dynamic session launched {counts}, expected {want}")
     if finals == 0 or min(per_final) < 1 or len(rows) != len(events):
@@ -2701,7 +2792,7 @@ def cascade_phase(opus: bool) -> dict:
     ``WAVE_TOL``. The VITS durations (frames per token, mms-tts-eng widths)
     of each translated sentence are equal on the card and the CPU. K1
     launches 4 per Whisper-tiny encode of the batcher's ``whisper_ring`` /
-    ``whisper_detect`` calls; K2 and K3 not at all."""
+    ``whisper_detect`` calls; K2, K3 and K4 not at all."""
     from streamkit_tpu_torch.core import ResourceManager
     from streamkit_tpu_torch.engine import DeviceBatcher
     from streamkit_tpu_torch.models import vits
@@ -3581,7 +3672,7 @@ def server_phase() -> dict:
        subscribers over QUIC (:func:`webtransport_subscribers`; where
        OpenSSL's libcrypto does not load, the WebSocket one alone):
        partials and a final;
-       exactly 2 K2 and 32 K3 per fused call, K1 32 per ring decode; a
+       exactly 2 K2, 32 K3 and 96 K4 per fused call, K1 32 per ring decode; a
        device profile taken meanwhile names K3; after ``destroysession`` no
        session and no stream-table row is left;
     6. ``/api/v1/metrics`` and the heap route (CUDA memory in use);
@@ -3597,7 +3688,7 @@ def server_phase() -> dict:
        (``# loadtest_oneshot_only``), then mixed for 30 s with 2 dynamic
        workers cycling sessions of the live-captions graph (an
        ``audio::gain`` before the whisper step, tuned every 200 ms); every
-       request must succeed; K1, K2 and K3 launches and each batched
+       request must succeed; K1, K2, K3 and K4 launches and each batched
        kind's calls and host wall a call are counted over each run;
     9. OTLP: a second server on the same model cache, started with
        ``otlp_endpoint`` on a collector stub and a 1 s interval, serves one
@@ -3870,7 +3961,7 @@ def server_phase() -> dict:
             show([r for r in rows if r["is_final"]], "server session final")
             check_transcripts(rows, speech8_s, "server live session", partials=True)
             want = {**ZERO_LAUNCHES, "flash_attention": per * encodes, "windowed_write": 2 * calls,
-                    "history_attention": per * calls}
+                    "history_attention": per * calls, "decode_cross_attention": cross_per_call() * calls}
             if counts != want or calls == 0:
                 raise AssertionError(f"server live session launched {counts}, expected {want}")
             if trace_status != 200 or b"history_attention" not in trace:
@@ -3960,7 +4051,7 @@ def server_phase() -> dict:
                     "sessions_after": len(state.sessions.list()), "stream_rows_held_after": stream_slots_held()}
                 log(f"# {label} " + json.dumps(report[label]))
                 want = {**ZERO_LAUNCHES, "flash_attention": per * encodes, "windowed_write": 2 * calls,
-                        "history_attention": per * calls}
+                        "history_attention": per * calls, "decode_cross_attention": cross_per_call() * calls}
                 expect = ("oneshot", "dynamic", "tune") if run_cfg.scenario == "mixed" else ("oneshot",)
                 failed = [k for k in expect
                           if k not in results or results[k]["requests"] == 0 or results[k]["success_rate"] < 1.0]
@@ -4264,7 +4355,7 @@ def mesh_engine(mesh, model_size: str, dtype: str, n_sessions: int, speech_s: fl
     # exact-final fallbacks: a ring decode of >= 8 s has >= 256 encoder positions (K1)
     encodes = sum(v for k, v in calls.items() if k.startswith("whisper_ring:") and int(k.rsplit(":", 1)[1]) >= 8 * SR)
     want = {**ZERO_LAUNCHES, "flash_attention": layers * encodes, "windowed_write": 2 * fused,
-            "history_attention": layers * fused}
+            "history_attention": layers * fused, "decode_cross_attention": cross_per_call(layers) * fused}
     torch.cuda.empty_cache()
     return {**report, "launches": counts, "expected": want, "calls": calls}
 
@@ -4421,7 +4512,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build_phase()
     t0 = time.monotonic()
-    k1, k2, k3 = k1_phase(), k2_phase(8), k3_phase(8)
+    k1, k2, k3, k4 = k1_phase(), k2_phase(8), k3_phase(8), k4_phase(64)
     bwd = k1_backward_phase()
     log(f"# kernel phase {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
@@ -4528,10 +4619,16 @@ def main() -> int:
               launches_speech_models=speech["launches"]["history_attention"],
               launches_server_session=server["session"]["launches"]["history_attention"],
               launches_loadtest=server["loadtest"]["launches"]["history_attention"])
-    for entry in (k1, k2, k3, *bwd.values()):
+    k4.update(launches=captions["decode_cross_attention"], path="oneshot live captions (WhisperNode)",
+              launches_live_partials=live["decode_cross_attention"],
+              launches_dynamic_session=dynamic["decode_cross_attention"],
+              launches_speech_models=speech["launches"]["decode_cross_attention"],
+              launches_server_session=server["session"]["launches"]["decode_cross_attention"],
+              launches_loadtest=server["loadtest"]["launches"]["decode_cross_attention"])
+    for entry in (k1, k2, k3, k4, *bwd.values()):
         entry["launches_mesh"] = mesh["launches_mesh"][entry["name"]]
     log(f"# whole script {time.monotonic() - t_script:.1f} s")
-    log(json.dumps({"kernels": [k1, k2, k3, *bwd.values()]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, *bwd.values()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

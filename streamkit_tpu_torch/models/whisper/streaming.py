@@ -35,11 +35,14 @@ row b is table slot b, the serving engine's packing) every cache append and
 every decoder fold goes through the windowed-write kernel
 (:mod:`...ops.cache_write`; one launch for all of a call's encoder-cache
 appends, one for its two folds), and the int8 tables' encoder attention through
-the history-attention kernel (:mod:`...ops.stream_attention`). Both wrappers
-launch their CUDA kernel on CUDA tensors and take their plain version on CPU
-tensors. Float tables and the general (gathered-row) mode keep the
-reference's eager formulation and scatter, as the reference does outside its
-gates.
+the history-attention kernel (:mod:`...ops.stream_attention`). In both modes
+the decode continuation's cross-attention over int8 cross caches goes through
+the decode-attention kernel (:mod:`...ops.decode_attention`), which reads the
+int8 values in place where eager PyTorch would write every upcast to device
+memory. The wrappers launch their CUDA kernel on CUDA tensors and take their
+plain version on CPU tensors. Float tables keep the reference's eager
+formulation; so does the general (gathered-row) mode, but for that
+cross-attention, and it scatters, as the reference does outside its gates.
 
 On a mesh (:func:`...parallel.serving.shard_stream_table`) a table holds
 this rank's ``[L, S/dp, H/tp, hd, T]`` caches and ``S/dp`` slot vectors; the
@@ -68,7 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device, strict_fp32
-from ...ops import cache_write, stream_attention
+from ...ops import cache_write, decode_attention, stream_attention
 from ...ops.mel import HOP_LENGTH, N_FFT, _dft_bases, _mel_mat, frame_signal
 from ...ops.stream_attention import scaled_operand
 from .config import WhisperConfig
@@ -383,9 +386,12 @@ def _decode_core(
     tok = tok.clone()
 
     ninf = float("-inf")
-    # max(ep, 1) keeps the softmax finite for rows not yet encoded (they are
-    # inactive; this only avoids NaN in dead lanes)
-    xmask = torch.where(
+    # the int8 cross caches' attention is one kernel (K4; its plain version
+    # on the CPU); float caches keep the eager expression. max(ep, 1) keeps
+    # the softmax finite for rows not yet encoded (they are inactive; this
+    # only avoids NaN in dead lanes)
+    int8_cross = isinstance(xkr, tuple)
+    xmask = None if int8_cross else torch.where(
         torch.arange(enc_t, device=dev)[None, :] < torch.clamp(ep, min=1)[:, None], 0.0, ninf
     )[:, None, None, :]
     # every active row's feed column advances in lockstep from feed0, so
@@ -430,10 +436,14 @@ def _decode_core(
             ).to(dtype)
             x = x + _dense(_merge_heads(attn), layer["attn"]["o"])
             qx = _split_heads(_dense(_layernorm(x, layer["ln_x"]), layer["xattn"]["q"]), hd)
-            xs = _scores_rows(_scaled(qx, scale), _read_layer(xkr, li, hist_ids), scale, dtype)
-            xp = torch.softmax(xs + xmask, dim=-1)
-            xa = _attend_rows(xp, _read_layer(xvr, li, hist_ids), dtype).to(dtype)
-            x = x + _dense(_merge_heads(xa), layer["xattn"]["o"])
+            qxs = _scaled(qx, scale)
+            xk_li, xv_li = _read_layer(xkr, li, hist_ids), _read_layer(xvr, li, hist_ids)
+            if int8_cross:
+                xa = decode_attention.decode_cross_attention(
+                    qxs.contiguous(), xk_li[0], xk_li[1], xv_li[0], xv_li[1], ep, float(scale))
+            else:
+                xa = _attend_rows(torch.softmax(_scores_rows(qxs, xk_li, scale, dtype) + xmask, dim=-1), xv_li, dtype)
+            x = x + _dense(_merge_heads(xa.to(dtype)), layer["xattn"]["o"])
             x = x + _mlp(_layernorm(x, layer["ln2"]), layer)
         # delta append at the uniform column i (inactive rows write dead
         # lanes that the fold's per-row count skips)

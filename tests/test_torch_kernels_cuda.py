@@ -14,6 +14,7 @@ import torch
 
 from streamkit_tpu_torch.ops import attention as tattn
 from streamkit_tpu_torch.ops import cache_write as tcw
+from streamkit_tpu_torch.ops import decode_attention as tda
 from streamkit_tpu_torch.ops import stream_attention as tsa
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))  # chip_smoke.py's mesh scenario
@@ -267,11 +268,66 @@ def test_history_attention_tile_edges(B, H, c, hd, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,hd,T",
+    [(64, 20, 64, 512), (64, 16, 64, 512), (64, 10, 64, 512), (8, 4, 32, 512), (8, 4, 128, 512),
+     # T with no 16-byte rows (4-byte vectors), and with no 4-byte rows (bytes)
+     (8, 3, 64, 300), (4, 2, 64, 77)],
+)
+def test_decode_cross_attention_matches_plain(dtype, B, H, hd, T):
+    """K4 at the benchmark's shapes (large-v3's 20 heads, medium's 16, a tp
+    half of 10), both extreme head dims and unaligned T, against the plain
+    version run in f32 (f32 atol 1e-4; bf16 within twice the plain version's
+    own bf16 error), horizons at random with 0, 1 and T among them; columns
+    past each row's horizon change nothing, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    i8 = lambda *s: torch.randint(-127, 128, s, device="cuda", generator=g, dtype=torch.int8)  # noqa: E731
+    sc = lambda *s: torch.rand(s, device="cuda", generator=g) * 0.02 + 0.001  # noqa: E731
+    q32 = torch.randn(B, H, 1, hd, device="cuda", generator=g) * 0.3
+    kw = dict(k8=i8(B, H, hd, T), ks=sc(B, H, T), v8=i8(B, H, hd, T), vs=sc(B, H, T))
+    ep = torch.randint(0, T + 1, (B,), device="cuda", generator=g, dtype=torch.int32)
+    ep[:3] = torch.tensor([0, 1, T], dtype=torch.int32)
+    op = hd ** -0.25
+    before = tda.decode_cross_attention.launches
+    out = tda.decode_cross_attention(q32.to(dtype), **kw, ep=ep, op_scale=op)
+    torch.cuda.synchronize()
+    assert tda.decode_cross_attention.launches == before + 1
+    ref = tda.decode_cross_attention_reference(q32.to(dtype).float(), **kw, ep=ep, op_scale=op)
+    if dtype == torch.float32:
+        tol = 1e-4
+    else:
+        tol = 2 * (tda.decode_cross_attention_reference(q32.to(dtype), **kw, ep=ep, op_scale=op) - ref).abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+    col = torch.arange(T, device="cuda")[None, None, :] >= torch.clamp(ep, min=1)[:, None, None]  # [B, 1, T]
+    junk = dict(k8=kw["k8"].masked_fill(col[:, :, None, :], 99), v8=kw["v8"].masked_fill(col[:, :, None, :], -99),
+                ks=kw["ks"].masked_fill(col, 7.0), vs=kw["vs"].masked_fill(col, 7.0))
+    again = tda.decode_cross_attention(q32.to(dtype), **junk, ep=ep, op_scale=op)
+    assert torch.equal(again, out)
+
+
+@pytest.mark.cuda
+def test_decode_cross_attention_refuses_mixed_devices():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw = dict(qs=torch.zeros(2, 2, 1, 64, device="cuda"), k8=torch.zeros(2, 2, 64, 32, dtype=torch.int8),
+              ks=torch.zeros(2, 2, 32, device="cuda"), v8=torch.zeros(2, 2, 64, 32, dtype=torch.int8, device="cuda"),
+              vs=torch.zeros(2, 2, 32, device="cuda"))
+    before = tda.decode_cross_attention.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tda.decode_cross_attention(**kw, ep=torch.tensor([1, 2]), op_scale=0.35)
+    assert tda.decode_cross_attention.launches == before
+
+
+@pytest.mark.cuda
 def test_fused_stream_step_on_cuda_matches_cpu():
     """Fused identity-mode int8 steps on the card (K2 twice per call: all
     encoder-cache appends, then both decoder folds; K3 once per encoder
-    layer per call) against the same steps on the CPU: equal
-    tokens and positions, int8 codes off by at most one."""
+    layer per call; K4 once per decoder layer and decode step) against the
+    same steps on the CPU: equal tokens and positions, int8 codes off by at
+    most one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
@@ -304,12 +360,13 @@ def test_fused_stream_step_on_cuda_matches_cpu():
 
     cpu = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
     gpu = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu").to("cuda")
-    before = (tcw.windowed_write_groups.launches, tsa.history_attention.launches)
+    counters = (tcw.windowed_write_groups, tsa.history_attention, tda.decode_cross_attention)
+    before = [c.launches for c in counters]
     tg = run("cuda", gpu)
     torch.cuda.synchronize()
-    launched = (tcw.windowed_write_groups.launches - before[0], tsa.history_attention.launches - before[1])
+    launched = tuple(c.launches - b for c, b in zip(counters, before))
     tc = run("cpu", cpu)
-    assert launched == (6, 6)
+    assert launched == (6, 6, 18)  # K4: 2 decoder layers x 3 steps x 3 calls
     for name in ("_tokens", "_n_tok", "_enc_pos"):
         assert torch.equal(getattr(tg, name).cpu(), getattr(tc, name)), name
     codes = np.abs(tg.cache_view("enc_k")[0].astype(int) - tc.cache_view("enc_k")[0].astype(int))
@@ -322,7 +379,9 @@ def test_fused_call_spans_hold_its_launches_and_kernels():
     card: every kernel launch (the runtime's launch event on the host) of a
     fused call through the batcher lies inside one of that call's
     ``stream.*`` spans, and every kernel runs between the spans' start and
-    the call's ``stream.fetch`` end (the one place the call waits)."""
+    the call's ``stream.fetch`` end (the one place the call waits). K4 runs
+    once per decoder layer and decode step of each call, inside its
+    ``stream.decode`` span."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import asyncio
@@ -367,6 +426,7 @@ def test_fused_call_spans_hold_its_launches_and_kernels():
         await calls(b, [0])  # builds and warms every kernel
         tracer.drain()
         tracer.enable()
+        k4_before.append(tda.decode_cross_attention.launches)
         try:
             with prof:
                 await calls(b, [1, 2])
@@ -375,7 +435,10 @@ def test_fused_call_spans_hold_its_launches_and_kernels():
             tracer.disable()
             b.stop()
 
+    k4_before = []
     asyncio.run(main())
+    k4_per_call = cfg.n_text_layer * 3
+    assert tda.decode_cross_attention.launches - k4_before[0] == 2 * k4_per_call
     spans = tracer.drain()
     call_spans = [sp for sp in spans if sp.name == "batcher.call"]
     assert len(call_spans) == 2
@@ -398,6 +461,9 @@ def test_fused_call_spans_hold_its_launches_and_kernels():
         ran = [e for e in kernels if lo <= e.start_ns() <= call.end_ns]
         assert len(ran) >= len(mine)
         assert all(e.start_ns() + e.duration_ns() <= fetch_end for e in ran)
+        decode = next(sp for sp in phases if sp.name == "stream.decode")
+        k4_ran = [e for e in ran if "decode_cross_attention" in e.name()]
+        assert len(k4_ran) == k4_per_call and all(e.start_ns() >= decode.start_ns for e in k4_ran), len(k4_ran)
 
 
 @pytest.mark.cuda
@@ -1101,8 +1167,9 @@ def test_mesh_ranks_on_one_card_match_one_rank(tp):
     (``chip_smoke.mesh_small_run``, the script's own scenario), at tp = 2
     and at dp = 2: the sharded forward's logits within 1e-5 of the one-rank
     run, the fused steps' tokens, counts and positions equal; each rank
-    launches K1 once per encoder layer of each encode, and K2 and K3 twice
-    per fused call (two layers) on its own heads and slots."""
+    launches K1 once per encoder layer of each encode, K2 and K3 twice per
+    fused call (two layers) and K4 six times (two layers, three decode
+    steps) on its own heads and slots."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
@@ -1113,13 +1180,14 @@ def test_mesh_ranks_on_one_card_match_one_rank(tp):
     from streamkit_tpu_torch.parallel import run_ranks
 
     # built once here: two ranks never run nvcc into one build directory
-    _build.build_all([tattn.SOURCE, tcw.SOURCE, tsa.SOURCE])
+    _build.build_all([tattn.SOURCE, tcw.SOURCE, tsa.SOURCE, tda.SOURCE])
     one = chip_smoke.mesh_small_run()
     ranks = run_ranks(_mesh_small_rank, 2, tp, device="cuda", backend="gloo", timeout_s=300)
     zero = chip_smoke.ZERO_LAUNCHES
     for r in ranks:
         assert r["forward_launches"] == one["forward_launches"] == {**zero, "flash_attention": 2}
-        assert r["fused_launches"] == one["fused_launches"] == {**zero, "windowed_write": 6, "history_attention": 6}
+        assert r["fused_launches"] == one["fused_launches"] == {**zero, "windowed_write": 6, "history_attention": 6,
+                                                                "decode_cross_attention": 18}
     for r in ranks:
         assert np.abs(r["logits"] - one["logits"]).max() <= 1e-5
         for got, want in zip(r["rows"], one["rows"]):

@@ -28,7 +28,7 @@ from streamkit_tpu_torch.engine.audio_ring import SessionAudioRing
 from streamkit_tpu_torch.models.whisper import streaming as ts
 from streamkit_tpu_torch.models.whisper.config import WhisperConfig
 from streamkit_tpu_torch.models.whisper.load import params_from_numpy
-from streamkit_tpu_torch.ops import cache_write, stream_attention
+from streamkit_tpu_torch.ops import cache_write, decode_attention, stream_attention
 from streamkit_tpu_torch.ops.vad import VAD_FRAME
 
 torch.set_num_threads(2)  # pytest runs files in parallel workers
@@ -314,15 +314,22 @@ def test_int8_table_tracks_f32(pair):
     assert int(tq.decode_steps(tp, [0], 8)[1][0]) > 4
 
 
-def test_cpu_step_takes_the_plain_versions(pair):
-    """On CPU tensors the identity int8 step goes through both kernel
-    wrappers, which take their plain versions and count no launch; the
-    batcher closure maps rows back to submission order."""
+def test_cpu_step_takes_the_plain_versions(pair, monkeypatch):
+    """On CPU tensors the identity int8 step goes through the three kernel
+    wrappers, which take their plain versions and count no launch (the
+    cross-attention's once per decoder layer and decode step); the batcher
+    closure maps rows back to submission order."""
     _, tp = pair
+    plain = decode_attention.decode_cross_attention_reference
+    calls = []
+    monkeypatch.setattr(decode_attention, "decode_cross_attention_reference",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
     S = 3
     ring = _session_rings(S + 1)[1]
     tbl = _tables(True, slots=S)[1]
-    before = (cache_write.windowed_write_groups.launches, stream_attention.history_attention.launches)
+    launches = lambda: (cache_write.windowed_write_groups.launches,  # noqa: E731
+                        stream_attention.history_attention.launches, decode_attention.decode_cross_attention.launches)
+    before = launches()
     fn = tbl.identity_step_fn(tp, ring, trash_slot=S, max_steps=3)
     meta = _meta([(2, 2, 0, 0, 1, 1, 1), (0, 0, 0, 0, 1, 1, 1)])
     probs, tok, n, pos = fn(meta, np.stack([_blocks(1, seed=3)[0]] * 2))
@@ -330,7 +337,8 @@ def test_cpu_step_takes_the_plain_versions(pair):
     np.testing.assert_array_equal(pos, [8, 8])
     np.testing.assert_array_equal(tok[:, :4], np.stack([PREFIX] * 2))
     assert tbl._enc_pos.tolist() == [8, 0, 8]
-    assert (cache_write.windowed_write_groups.launches, stream_attention.history_attention.launches) == before
+    assert launches() == before
+    assert len(calls) == CFG.n_text_layer * 3
 
 
 def test_get_stream_table_first_creator_wins(pair, caplog):
