@@ -42,12 +42,6 @@ RIGHT_CTX = 200
 E4M3_MAX = 448.0
 
 
-def no_tf32() -> None:
-    """Float32 products in float32: TF32 would be a lower precision."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 # ---------------------------------------------------------------------------
 # precision
 # ---------------------------------------------------------------------------

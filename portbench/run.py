@@ -3,7 +3,8 @@
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Loads the cell's configuration with weights drawn on the card from the
+Loads the cell's configuration through its model family
+(``families/<model_type>.py``) with weights drawn on the card from the
 seed, warms up the cell's shapes (set-up, ``setup_s``), drives the cell's
 traffic through the program for ``--seconds``, then holds what it served
 against the plain reference. On the card every run profiles the window's
@@ -13,8 +14,8 @@ output is one JSON object: ``correct``, ``attempted``, ``failed``,
 per-layer metrics), ``device`` and, last, ``checks`` (each compared number
 with its limit, also the last lines of standard error).
 
-``--dry-run`` runs the same control flow on the CPU at a few layers of
-small width and a few sessions; it prints counts and readings, never a
+``--dry-run`` runs the same control flow on the CPU at the family's small
+size and a few sessions; it prints counts and readings, never a
 device metric. ``--control`` puts the float8 reference in the program's
 place in ``checks`` and ``correct`` (it has to come out not correct).
 """
@@ -61,18 +62,17 @@ class Ctx:
     """What a traffic driver is given: the cell, the model, the device and
     the measured window's clock."""
 
-    def __init__(self, args, workload: dict, mix: dict, cfg: dict, device):
-        import weights
-
+    def __init__(self, args, workload: dict, mix: dict, cfg: dict, device, family):
         self.seed = args.seed & ((1 << 63) - 1)
         self.seconds = float(args.seconds)
         # on the card every run traces the window's last stretch: the
         # end-to-end device time is read from it as well
         self.trace_on = bool(args.trace) or device.type == "cuda"
         self.workload, self.mix, self.cfg, self.device = workload, mix, cfg, device
-        self.dims = weights.dims(cfg)
-        self.port_cfg = weights.port_config(cfg)
-        self.port_size = cfg["port_size"]
+        # the model as its family gives it to the traffic driver (Whisper:
+        # dims, port_cfg, port_size)
+        for name, value in family.attributes(cfg).items():
+            setattr(self, name, value)
         self.warm_timeout = 120.0
         self.trace = None
         self.peaks = None
@@ -134,13 +134,6 @@ class Ctx:
             torch.cuda.empty_cache()
 
 
-def dry_config(cfg: dict) -> dict:
-    """The cell's configuration at two layers of width 256 (four heads of
-    64): the CPU rehearsal's size."""
-    return dict(cfg, d_model=256, encoder_layers=2, decoder_layers=2, encoder_attention_heads=4,
-                decoder_attention_heads=4, encoder_ffn_dim=1024, decoder_ffn_dim=1024)
-
-
 def dry_mix(mix: dict) -> dict:
     out = dict(mix)
     for key in ("sessions", "clients"):
@@ -186,11 +179,12 @@ def main(argv=None) -> int:
     workload = cells[args.workload]
     mix = spec.mixes()[workload["mix"]]
     cfg = spec.configs()[workload["config"]]
+    family = spec.family(cfg)
     import torch
 
     if args.dry_run:
         device = torch.device("cpu")
-        cfg, mix = dry_config(cfg), dry_mix(mix)
+        cfg, mix = family.dry_config(cfg), dry_mix(mix)
     else:
         if not torch.cuda.is_available() or torch.cuda.device_count() < workload["chips"]:
             log(f"this cell needs {workload['chips']} CUDA device(s); "
@@ -198,26 +192,21 @@ def main(argv=None) -> int:
             return 3
         device = torch.device("cuda", 0)
     torch.set_num_threads(2)
-    from reference.whisper import no_tf32
-
-    no_tf32()
-    ctx = Ctx(args, workload, mix, cfg, device)
+    # float32 products in float32 (TF32 would be a lower precision)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = Ctx(args, workload, mix, cfg, device, family)
     if device.type == "cuda":
         from roofline import peaks
 
-        from streamkit_tpu_torch.engine import ingest
-        from streamkit_tpu_torch.ops import _build, attention, cache_write, stream_attention
+        from streamkit_tpu_torch.ops import _build
 
         # every kernel the cell can reach is built in set-up, never in the window
-        _build.build_all([attention.SOURCE, cache_write.SOURCE, stream_attention.SOURCE, ingest.SOURCE])
+        _build.build_all(family.sources())
         ctx.peaks = peaks(torch.cuda.get_device_name(0))
     ctx.mark("kernels built")
-    import weights
-
-    from streamkit_tpu_torch.models.whisper.model import build_params
-
-    ctx.tree = weights.draw(cfg, ctx.seed, device)
-    ctx.params = build_params(ctx.tree)
+    ctx.tree = family.draw(cfg, ctx.seed, device)
+    ctx.params = family.build(ctx.tree)
     ctx.mark("weights drawn")
     driver = spec.traffic_driver(mix["kind"])
     rec = asyncio.run(driver.run(ctx))

@@ -4,9 +4,13 @@
 Each configuration, traffic mix, cell and metric is a file of its own,
 found by name, so a later change adds one by adding files:
 
-* ``configs/<config>.json``: a model configuration as it is run;
+* ``configs/<config>.json``: a model configuration as it is run; its
+  ``model_type`` names its family;
+* ``families/<model_type>.py`` (``-`` read as ``_``): a model family: its
+  sizes and the program's config object, the CPU rehearsal's size, the native
+  sources to build in set-up, its weights and the program's parameters;
 * ``mixes/<mix>.json``: a traffic mix, ``{"kind": <driver>, ...}``, read by
-  ``traffic/<kind>.py``;
+  ``traffic/<kind>.py``, which names the families it serves (``FAMILIES``);
 * ``workloads/<cell>.json``: a cell: its config, mix, chips, ``why``, the
   metrics it reports and the limits of its correctness check;
 * ``end_to_end/<metric>.py`` and ``layer_metrics/<metric>.py``: a metric's
@@ -19,6 +23,7 @@ found by name, so a later change adds one by adding files:
 
 from __future__ import annotations
 
+import ast
 import glob
 import importlib.util
 import json
@@ -82,6 +87,32 @@ def layer_metrics(root: str = HERE) -> Dict[str, ModuleType]:
     return _modules("layer_metrics", root)
 
 
+def family_name(cfg: dict) -> str:
+    """The family of a configuration: its ``model_type``, ``-`` read as ``_``."""
+    return str(cfg.get("model_type", "")).replace("-", "_")
+
+
+def family(cfg: dict, root: str = HERE) -> ModuleType:
+    """The family module of a configuration (``families/<model_type>.py``)."""
+    name = family_name(cfg)
+    path = os.path.join(root, "families", f"{name}.py")
+    if not os.path.exists(path):
+        raise KeyError(f"no family {name!r} (portbench/families/{name}.py)")
+    return load_module(path, f"portbench_family_{name}")
+
+
+def served_families(kind: str, root: str = HERE) -> tuple:
+    """The families a traffic driver serves: its top-level ``FAMILIES``,
+    read from the source without importing the driver (empty: none)."""
+    with open(os.path.join(root, "traffic", f"{kind}.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(isinstance(t, ast.Name) and t.id == "FAMILIES"
+                                                for t in node.targets):
+            return tuple(str(x).replace("-", "_") for x in ast.literal_eval(node.value))
+    return ()
+
+
 def traffic_driver(kind: str, root: str = HERE) -> ModuleType:
     path = os.path.join(root, "traffic", f"{kind}.py")
     if not os.path.exists(path):
@@ -129,13 +160,22 @@ def problems(root: str = HERE) -> list:
     for name in list(cfgs) + list(mx) + list(cells) + list(e2e) + list(layers):
         if not NAME.match(name):
             bad.append(f"bad name {name!r}")
+    fams = _by_name("families", ".py", root)
+    for name, c in cfgs.items():
+        if family_name(c) not in fams:
+            bad.append(f"config {name}: no family module families/{family_name(c)}.py for its model_type "
+                       f"{c.get('model_type')!r}")
     for name, w in cells.items():
         if w["config"] not in cfgs:
             bad.append(f"{name}: no config {w['config']!r}")
-        if w["mix"] not in mx:
+        kind = mx[w["mix"]]["kind"] if w["mix"] in mx else None
+        if kind is None:
             bad.append(f"{name}: no mix {w['mix']!r}")
-        elif not os.path.exists(os.path.join(root, "traffic", mx[w["mix"]]["kind"] + ".py")):
-            bad.append(f"{name}: no traffic driver for {mx[w['mix']]['kind']!r}")
+        elif not os.path.exists(os.path.join(root, "traffic", kind + ".py")):
+            bad.append(f"{name}: no traffic driver for {kind!r}")
+        elif w["config"] in cfgs and family_name(cfgs[w["config"]]) not in served_families(kind, root):
+            bad.append(f"{name}: traffic kind {kind} does not serve the family "
+                       f"{family_name(cfgs[w['config']])!r} of config {w['config']}")
         if "setup_s" not in w["end_to_end"] or len(w["end_to_end"]) < 2 or not w["per_layer"]:
             bad.append(f"{name}: needs setup_s, another end-to-end metric and a per-layer metric")
         for m in w["end_to_end"]:
@@ -148,6 +188,8 @@ def problems(root: str = HERE) -> list:
                 bad.append(f"{name}: {m} moves {layers[m].META['moves']}, which the cell does not report")
     used = {w["config"] for w in cells.values()}
     bad += [f"config {c} is used by no cell" for c in cfgs if c not in used]
+    used_fams = {family_name(c) for c in cfgs.values()}
+    bad += [f"family {f} is used by no config" for f in fams if f not in used_fams]
     used_mixes = {w["mix"] for w in cells.values()}
     bad += [f"mix {m} is used by no cell" for m in mx if m not in used_mixes]
     kinds = {mx[m]["kind"] for m in used_mixes if m in mx}

@@ -24,7 +24,7 @@ sys.path[:0] = [HERE, REPO]
 
 import spec  # noqa: E402
 import stats  # noqa: E402
-from roofline import k1, k2, k3, least_seconds, peaks  # noqa: E402
+from roofline import k1, k2, k3, k4, least_seconds, peaks  # noqa: E402
 from roofline import whisper as wr  # noqa: E402
 
 NAME_CHARS = set("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789_.-")
@@ -91,6 +91,161 @@ def test_a_cell_and_a_metric_added_as_files_are_picked_up(tmp_path):
     assert "added.whisper-medium" in next(m for m in b["per_layer"] if m["name"] == "fused_call_ms.live")["workloads"]
 
 
+# A model family that is not Whisper, added with its configuration, a
+# traffic kind, a mix and a cell as new files only: a two-layer MLP drawn
+# from the seed, served in bfloat16 and judged against a float32 forward pass.
+TOY_FAMILY = """
+import torch
+
+
+def attributes(cfg):
+    return {"dims": {"d": cfg["hidden_size"]}}
+
+
+def dry_config(cfg):
+    return cfg
+
+
+def sources():
+    return []
+
+
+def draw(cfg, seed, device):
+    d, f = cfg["hidden_size"], cfg["intermediate_size"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.empty(2 * d * f + f + d, device=device).uniform_(-1.0, 1.0, generator=gen)
+    w1, w2, b1, b2 = torch.split(flat, [d * f, f * d, f, d])
+    return {"w1": w1.view(d, f) * d ** -0.5, "b1": b1 * 0.02, "w2": w2.view(f, d) * f ** -0.5, "b2": b2 * 0.02}
+
+
+def build(tree):
+    return {k: v.to(torch.bfloat16) for k, v in tree.items()}
+"""
+
+TOY_TRAFFIC = """
+import time
+
+import torch
+
+FAMILIES = ("toy_mlp",)
+
+
+def forward(p, x):
+    return torch.relu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+async def run(ctx):
+    gen = torch.Generator().manual_seed(ctx.seed)
+    xs = torch.randn(ctx.mix["calls"], ctx.mix["rows"], ctx.dims["d"], generator=gen)
+    ctx.window_start()
+    ys = [forward(ctx.params, x.to(torch.bfloat16)).float() for x in xs]
+    ctx.t_end = ctx.t_host = time.monotonic()
+    return {"xs": xs, "ys": ys}
+
+
+def trace_readings(ctx, rec, trace):
+    return {}
+
+
+def judge(ctx, rec, precisions=("f32",)):
+    ctx.drop_program()
+    ref = {k: v.float() for k, v in ctx.tree.items()}
+    return {"err_f32": max(float((forward(ref, x) - y).abs().max()) for x, y in zip(rec["xs"], rec["ys"]))}
+
+
+def counts(rec):
+    return len(rec["ys"]), 0
+
+
+def counts_detail(rec):
+    return {"calls": len(rec["ys"])}
+"""
+
+
+@pytest.fixture
+def toy_root(tmp_path):
+    """A copy of the benchmark with the toy family's files added."""
+    root = tmp_path / "portbench"
+    shutil.copytree(HERE, root, ignore=shutil.ignore_patterns("tests", "__pycache__", "*.npz"))
+    (root / "families" / "toy_mlp.py").write_text(TOY_FAMILY)
+    (root / "traffic" / "toy.py").write_text(TOY_TRAFFIC)
+    (root / "configs" / "toy-mlp.json").write_text(json.dumps({
+        "source": "https://example.org/toy-mlp", "reduced": [], "why": "a two-layer MLP", "model_type": "toy-mlp",
+        "hidden_size": 32, "intermediate_size": 64}))
+    (root / "mixes" / "toy.json").write_text(json.dumps({"kind": "toy", "calls": 4, "rows": 8}))
+    (root / "workloads" / "toy.toy-mlp.json").write_text(json.dumps({
+        "config": "toy-mlp", "mix": "toy", "chips": 1, "why": "a family added as files",
+        "end_to_end": ["device_ms_per_audio_s", "setup_s"], "per_layer": ["device_idle.live"],
+        "limits": {"err_f32": 0.05}}))
+    return root
+
+
+def test_a_family_added_as_files_rehearses_to_correct(toy_root):
+    assert spec.problems(str(toy_root)) == []
+    assert "toy.toy-mlp" in [w["name"] for w in spec.benchmark(str(toy_root))["workloads"]]
+    proc = subprocess.run([sys.executable, str(toy_root / "run.py"), "--workload", "toy.toy-mlp", "--seed",
+                           "3000000017", "--seconds", "1", "--dry-run"],
+                          capture_output=True, text=True, timeout=300, cwd=str(toy_root.parent))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["correct"] is True and out["attempted"] == 4 and out["failed"] == 0, out
+    assert 0 < out["checks"]["err_f32"]["value"] <= 0.05, out["checks"]
+
+
+@pytest.mark.parametrize("mistake", ["family_missing", "family_unused", "family_not_served"])
+def test_a_family_mismatch_is_refused(toy_root, mistake):
+    if mistake == "family_missing":
+        (toy_root / "families" / "toy_mlp.py").unlink()
+        want = "config toy-mlp: no family module families/toy_mlp.py"
+    elif mistake == "family_unused":
+        (toy_root / "families" / "orphan.py").write_text(TOY_FAMILY)
+        want = "family orphan is used by no config"
+    else:
+        (toy_root / "traffic" / "toy.py").write_text(TOY_TRAFFIC.replace('("toy_mlp",)', '("whisper",)'))
+        want = "toy.toy-mlp: traffic kind toy does not serve the family 'toy_mlp'"
+    assert any(p.startswith(want) for p in spec.problems(str(toy_root))), spec.problems(str(toy_root))
+
+
+def _leaves(x, path=""):
+    """``(path, tensor)`` of a nested dict/list, or of a module's parameters."""
+    if hasattr(x, "named_parameters"):
+        yield from x.named_parameters()
+    elif isinstance(x, dict):
+        for k in sorted(x):
+            yield from _leaves(x[k], f"{path}/{k}")
+    elif isinstance(x, list):
+        for i, v in enumerate(x):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, x
+
+
+def test_the_whisper_family_draws_and_builds_what_the_old_path_did():
+    import torch
+    import weights
+
+    from streamkit_tpu_torch.models.whisper.model import build_params
+
+    cfg = spec.configs()["whisper-large-v3"]
+    fam = spec.family(cfg)
+    small = fam.dry_config(cfg)
+    # the CPU rehearsal's size as run.py set it before the families
+    assert small == dict(cfg, d_model=256, encoder_layers=2, decoder_layers=2, encoder_attention_heads=4,
+                         decoder_attention_heads=4, encoder_ffn_dim=1024, decoder_ffn_dim=1024)
+    got = fam.attributes(small)
+    assert got["dims"] == weights.dims(small) and got["port_cfg"] == weights.port_config(small)
+    assert got["port_size"] == "large-v3"
+    cpu = torch.device("cpu")
+    tree, old_tree = fam.draw(small, 3000000017, cpu), weights.draw(small, 3000000017, cpu)
+    params, old_params = fam.build(tree), build_params(old_tree)
+    assert [(n, type(m)) for n, m in params.named_modules()] == [(n, type(m)) for n, m in old_params.named_modules()]
+    for new, old in ((tree, old_tree), (params, old_params)):
+        a, b = list(_leaves(new)), list(_leaves(old))
+        assert [p for p, _ in a] == [p for p, _ in b] and len(a) > 50
+        for (path, x), (_, y) in zip(a, b):
+            assert x.dtype == y.dtype and torch.equal(x, y), path
+
+
 def test_rate_and_percentile_arithmetic():
     # a span's work spreads over its time: half of [0, 2] lies in [1, 3]
     assert stats.windowed_work([(0.0, 2.0, 10.0), (1.5, 2.5, 4.0), (4.0, 5.0, 1.0)], 1.0, 3.0) == 9.0
@@ -122,6 +277,20 @@ def test_roofline_counts_at_known_shapes():
                    + wr.logits(4, 10))
 
 
+def test_k4_roofline_counts_at_a_known_shape():
+    # large-v3's 20 heads of 64 over 512 columns: a row not yet encoded reads
+    # one column, a horizon past T reads T
+    horizons = [0, 100, 512, 600]
+    cols = 1 + 100 + 512 + 512
+    assert k4.columns(horizons, 512) == cols
+    assert k4.flops(20, 64, horizons, 512) == 4 * 20 * 64 * cols
+    assert k4.nbytes(20, 64, horizons, 512) == 4 * 20 * 64 * 2 + 4 * 20 * 64 * 4 + 16 + 20 * cols * (2 * 64 + 8)
+    # bound by bytes at 3.35 TB/s, not by the f32 CUDA cores' 67 TFLOP/s
+    h100 = peaks("NVIDIA H100 80GB HBM3")
+    assert least_seconds(k4.flops(20, 64, horizons, 512), k4.nbytes(20, 64, horizons, 512), h100,
+                         "f32_flops") == pytest.approx(k4.nbytes(20, 64, horizons, 512) / 3.35e12)
+
+
 def test_the_continuation_decoder_is_followed_step_by_step():
     sys.path.insert(0, os.path.join(HERE, "traffic"))
     live = spec.traffic_driver("live")
@@ -151,6 +320,13 @@ def test_nothing_imports_jax_and_the_reference_imports_nothing_of_the_program():
         assert not tops & {"jax", "jaxlib", "flax", "streamkit_tpu"}, path
         if os.sep + "reference" + os.sep in path:
             assert "streamkit_tpu_torch" not in tops, path
+
+
+def test_run_py_names_no_model():
+    # the model comes through its family module (families/<model_type>.py)
+    names = set(_imports(os.path.join(HERE, "run.py")))
+    assert not {n for n in names if n.startswith("streamkit_tpu_torch.models")}, names
+    assert not names & {"weights", "reference.whisper", "reference"}, names
 
 
 def _dry_run(cell: str, *extra: str) -> dict:

@@ -2,7 +2,8 @@
 """Traffic kind ``live``: concurrent live sessions into the program's
 ``SttServingEngine``, all opened at once, each fed its own seeded speech
 through the engine's ingest pool (``IngestPool.start_replay``) in 20 ms
-frames as fast as the engine takes the blocks.
+frames as fast as the engine takes the blocks. Serves the ``whisper``
+family (``FAMILIES``).
 
 Mix parameters (``mixes/<mix>.json``): ``sessions``, ``session_s``,
 ``lead_s``, ``utterance_s`` (the library's durations), ``pauses_s`` (the
@@ -32,6 +33,8 @@ import checks
 from recorder import RecordingBatcher
 from reference import vad as ref_vad
 from reference import whisper as ref
+
+FAMILIES = ("whisper",)
 
 SR = 16_000
 VAD_FRAME = 512
@@ -118,6 +121,7 @@ async def run(ctx) -> dict:
     c1 = ctx.snap_host.get("stream_step", c0)
     t_host = ctx.t_host
     dropped = eng.pool.dropped()
+    enc_t = eng._tbl.enc_t  # the stream table's encoder columns: K4's T
     await eng.stop()
     batcher.stop()
     calls = sorted(batcher.calls_of("stream_step"), key=lambda c: c.t1)
@@ -144,7 +148,7 @@ async def run(ctx) -> dict:
             f"{live['host_audio_s'] / max(1e-9, t_host - t_w):.3f} over the first {t_host - t_w:.1f} s")
     return {"kind": "live", "live": live, "t_w": t_w, "t_end": t_end, "calls": calls, "timeline": tl,
             "events": events, "sessions": sessions, "warm": warm, "ring_samples": RING_SAMPLES, "block": block,
-            "n_chunks": max(2, -(-block // ref.CHUNK_SAMPLES)), "dims": m}
+            "n_chunks": max(2, -(-block // ref.CHUNK_SAMPLES)), "dims": m, "enc_t": enc_t}
 
 
 def _thirds(xs: list) -> list:
@@ -236,9 +240,9 @@ def add_flops(tl: dict, m: dict) -> None:
 
 def trace_readings(ctx, rec: dict, trace) -> dict:
     """In the fused calls that lie wholly in the trace: the device time, the
-    audio and the useful operations of the whole step, and K2's and K3's
-    least time and device time."""
-    from roofline import k2, k3, least_seconds
+    audio and the useful operations of the whole step, and K2's, K3's and
+    K4's least time and device time."""
+    from roofline import k2, k3, k4, least_seconds
 
     m, peak = rec["dims"], ctx.peaks
     by_seq = {c.seq: tl for c, tl in zip(rec["calls"], rec["timeline"]["calls"])}
@@ -248,8 +252,9 @@ def trace_readings(ctx, rec: dict, trace) -> dict:
     le, ld = m["enc_layers"], m["dec_layers"]
     c = ref.CHUNK_POS * rec["n_chunks"]
     enc_pairs = [(le, he * hde, 1, c)] * 2 + [(le, he, 4, c)] * 2 + [(ld, ht * hdt, 1, c)] * 2 + [(ld, ht, 4, c)] * 2
-    fold_pairs = [(ld, ht * hdt, 2, ctx.mix["stream_steps"])] * 2
-    k2_least = k3_least = 0.0
+    steps = ctx.mix["stream_steps"]
+    fold_pairs = [(ld, ht * hdt, 2, steps)] * 2
+    k2_least = k3_least = k4_least = 0.0
     step = {"device_s": 0.0, "audio_s": 0.0, "flops": 0, "calls": len(spans)}
     for s in spans:
         tl = by_seq[s.seq]
@@ -260,11 +265,18 @@ def trace_readings(ctx, rec: dict, trace) -> dict:
         k3_least += le * least_seconds(k3.flops(he, c, hde, pos), k3.nbytes(he, c, hde, pos), peak)
         k2_least += least_seconds(0, k2.nbytes(enc_pairs, tl["commit"]), peak)
         k2_least += least_seconds(0, k2.nbytes(fold_pairs, tl["fold"]), peak)
+        # K4 runs every decode step over every row of the call, at the row's
+        # horizon after this call's encode
+        eps = [r["pos1"] for r in tl["rows"]]
+        k4_least += ld * steps * least_seconds(k4.flops(ht, hdt, eps, rec["enc_t"]),
+                                               k4.nbytes(ht, hdt, eps, rec["enc_t"]), peak, "f32_flops")
     return {"step": step,
             "k2": {"least_s": k2_least, "device_s": trace.kernel_seconds(k2.KERNEL, spans), "calls": len(spans),
                    "launches": trace.kernel_count(k2.KERNEL, spans)},
             "k3": {"least_s": k3_least, "device_s": trace.kernel_seconds(k3.KERNEL, spans), "calls": len(spans),
-                   "launches": trace.kernel_count(k3.KERNEL, spans)}}
+                   "launches": trace.kernel_count(k3.KERNEL, spans)},
+            "k4": {"least_s": k4_least, "device_s": trace.kernel_seconds(k4.KERNEL, spans), "calls": len(spans),
+                   "launches": trace.kernel_count(k4.KERNEL, spans)}}
 
 
 # ---------------------------------------------------------------------------
